@@ -1,0 +1,80 @@
+"""Core NN primitives: dense, conv1d, eval-mode batchnorm, dropout, masking.
+
+Functional counterparts of the JAX package's ``ops/layers.py``. Activations
+keep the JAX package's channels-last layout ``(B, T, C)`` at every public
+function; weights keep torch's own layouts (dense ``(out, in)``, conv
+``(out, in, k)``), as the modules of ``models/tacotron2.py`` hold them.
+
+Mixed precision follows the JAX package: with a ``compute_dtype`` the
+operands are cast to it and the product comes back in it (fp32 accumulation
+inside), and an fp32 bias add promotes the result to fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def _cast(x: torch.Tensor, w: torch.Tensor, compute_dtype):
+    dtype = compute_dtype or torch.float32
+    return x.to(dtype), w.to(dtype)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None,
+          compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x: (..., in), weight: (out, in) -> (..., out)."""
+    xc, wc = _cast(x, weight, compute_dtype)
+    y = torch.matmul(xc, wc.t())
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """SAME conv over time. x: (B, T, C_in), weight: (C_out, C_in, k) with k
+    odd -> (B, T, C_out) (reference layers.py:26-27 auto padding)."""
+    xc, wc = _cast(x, weight, compute_dtype)
+    k = weight.shape[-1]
+    y = F.conv1d(xc.transpose(1, 2), wc, padding=(k - 1) // 2)
+    y = y.transpose(1, 2)
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def batchnorm(x: torch.Tensor, running_mean: torch.Tensor,
+              running_var: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Eval-mode per-channel batchnorm over (B, T, C) with running
+    statistics (torch BatchNorm1d semantics); keeps x's dtype."""
+    inv = torch.rsqrt(running_var + eps) * weight
+    y = (x - running_mean) * inv + bias
+    return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, *,
+            generator: Optional[torch.Generator] = None,
+            deterministic: bool = False,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverted dropout (torch F.dropout semantics). ``keep`` feeds a 0/1
+    keep mask drawn elsewhere (tests hand in the JAX package's masks);
+    otherwise the mask is drawn from ``generator``."""
+    if keep is None:
+        if deterministic or rate == 0.0:
+            return x
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        keep = u < 1.0 - rate
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
+
+
+def length_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B,) lengths -> (B, max_len) bool mask, True at valid positions
+    (reference utils.py:6-10)."""
+    positions = torch.arange(max_len, device=lengths.device)[None, :]
+    return positions < lengths[:, None]

@@ -1,0 +1,99 @@
+"""The port stands alone: it imports torch and never JAX or the JAX package,
+and its entry points refuse to run on the CPU unless asked to."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from tacotron2_tpu_torch.config import Tacotron2Config
+from tacotron2_tpu_torch.models import tacotron2 as tm
+from tacotron2_tpu_torch.serve import BatchingSynthesizer
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "tacotron2_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "tacotron2_tpu")
+
+SMALL = Tacotron2Config(
+    n_symbols=148, symbols_embedding_dim=16, encoder_embedding_dim=16,
+    encoder_n_convolutions=1, attention_rnn_dim=16, decoder_rnn_dim=16,
+    prenet_dim=8, attention_dim=8, attention_location_n_filters=2,
+    attention_location_kernel_size=5, postnet_embedding_dim=8,
+    postnet_n_convolutions=2, n_mel_channels=8)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tacotron2_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('\\n'.join(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout.split()
+    assert "tacotron2_tpu_torch.serve" in out
+    assert "tacotron2_tpu_torch.kernels.decoder_batch" in out
+    assert [m for m in out if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import_in_source(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    model = tm.Tacotron2(SMALL)
+    text, lengths = torch.ones(1, 4, dtype=torch.long), torch.tensor([4])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchingSynthesizer(model, SMALL)
+    for entry in (tm.infer, tm.infer_batch_fused):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(model, text, lengths, SMALL, max_steps=2)
+        entry(model, text, lengths, SMALL, max_steps=2, device="cpu")
+    synth = BatchingSynthesizer(model, SMALL, device="cpu")
+    synth.close()
+
+
+def test_int8_weights_are_refused():
+    sd = dict(tm.Tacotron2(SMALL).state_dict())
+    sd["decoder.attention_rnn.w_q"] = torch.zeros(4, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="int8_matmul"):
+        BatchingSynthesizer(sd, SMALL, device="cpu")
+
+
+def test_kernel_wrappers_take_plain_versions_on_cpu():
+    """A CPU model runs the whole serving path through the plain versions:
+    neither kernel's launch count moves."""
+    from tacotron2_tpu_torch.kernels import decoder_batch as db
+    from tacotron2_tpu_torch.kernels import encoder_lstm as el
+    launches = (el.bilstm_forward.launches, db.decoder_chunk.launches)
+    plain = (el.bilstm_forward_plain.calls, db.decoder_chunk_plain.calls)
+    cfg = SMALL.replace(gate_threshold=1.0)  # never latches: 2 chunks
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0))
+    res = tm.infer_batch_fused(model, torch.ones(2, 5, dtype=torch.long),
+                               torch.tensor([5, 3]), cfg, max_steps=4,
+                               chunk_steps=2, device="cpu")
+    assert res.mel_postnet.shape == (2, 4, 8)
+    assert (el.bilstm_forward.launches, db.decoder_chunk.launches) == launches
+    assert el.bilstm_forward_plain.calls == plain[0] + 1
+    assert db.decoder_chunk_plain.calls == plain[1] + 2
