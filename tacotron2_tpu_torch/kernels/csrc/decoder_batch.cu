@@ -359,32 +359,63 @@ struct Chunk {
   float gate_logit;
 };
 
-static size_t lstm_smem(int K) {
-  return gate_product_smem<DEC_UNITS, DEC_THREADS>(K);
+// Dynamic shared memory of each kernel of the chunk, in bytes, in launch
+// order; the one place these sizes are stated (decoder_chunk_limits reports
+// them to Python).
+enum { K_PRENET, K_LSTM, K_QUERY, K_ENERGY, K_SOFTMAX_CTX, K_PROJ, N_KERNELS };
+
+static void chunk_smem(int T, int n, int p, int E, int A, int D, int datt,
+                       int ks, size_t out[N_KERNELS]) {
+  const int k_lstm = p + E + A > A + E + D ? p + E + A : A + E + D;
+  out[K_PRENET] = sizeof(float) * (n + p + PRE_COLS + DEC_THREADS);
+  out[K_LSTM] = gate_product_smem<DEC_UNITS, DEC_THREADS>(k_lstm);
+  out[K_QUERY] = sizeof(float) * (A + DEC_THREADS + 32);
+  out[K_ENERGY] = sizeof(float) * ((size_t)ks * 2 * datt + 2 * datt +
+                                   2 * (E_TILE + ks - 1) + E_TILE * datt);
+  out[K_SOFTMAX_CTX] = sizeof(float) * (T + SM_THREADS + CTX_COLS);
+  out[K_PROJ] = sizeof(float) * (D + E + PROJ_COLS + DEC_THREADS);
+}
+
+// 0 when the chunk can run these dimensions on the current device; 1 when
+// A or D is not a multiple of DEC_UNITS; 2 when ks is even; 3 + i when
+// kernel i (the enum above) needs more shared memory than one block may
+// opt into, with *need and *have its bytes and the device's; -1 when the
+// device cannot be asked.
+static int chunk_limits(int T, int n, int p, int E, int A, int D, int datt,
+                        int ks, size_t* need, int* have) {
+  if (A % DEC_UNITS || D % DEC_UNITS) return 1;
+  if (ks % 2 == 0) return 2;
+  int dev;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(have, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  size_t sm[N_KERNELS];
+  chunk_smem(T, n, p, E, A, D, datt, ks, sm);
+  for (int i = 0; i < N_KERNELS; ++i) {
+    if (sm[i] > (size_t)*have) {
+      *need = sm[i];
+      return 3 + i;
+    }
+  }
+  return 0;
 }
 
 template <typename W>
 static cudaError_t run(const Chunk& c, cudaStream_t s) {
-  const size_t sm_lstm = lstm_smem(c.p + c.E + c.A > c.A + c.E + c.D
-                                       ? c.p + c.E + c.A
-                                       : c.A + c.E + c.D);
-  const size_t sm_pre = sizeof(float) * (c.n + c.p + PRE_COLS + DEC_THREADS);
-  const size_t sm_q = sizeof(float) * (c.A + DEC_THREADS + 32);
-  const size_t sm_e = sizeof(float) * (c.ks * 2 * c.datt + 2 * c.datt +
-                                       2 * (E_TILE + c.ks - 1) + E_TILE * c.datt);
-  const size_t sm_sm = sizeof(float) * (c.T + SM_THREADS + CTX_COLS);
-  const size_t sm_pj = sizeof(float) * (c.D + c.E + PROJ_COLS + DEC_THREADS);
+  size_t sm[N_KERNELS];
+  chunk_smem(c.T, c.n, c.p, c.E, c.A, c.D, c.datt, c.ks, sm);
   cudaError_t err;
 #define T2_SMEM(kern, bytes)                                                   \
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, \
                              (int)(bytes));                                    \
   if (err != cudaSuccess) return err;
-  T2_SMEM(prenet_kernel<W>, sm_pre);
-  T2_SMEM(lstm_kernel<W>, sm_lstm);
-  T2_SMEM(query_kernel<W>, sm_q);
-  T2_SMEM(energy_kernel<W>, sm_e);
-  T2_SMEM(softmax_ctx_kernel<W>, sm_sm);
-  T2_SMEM(proj_kernel<W>, sm_pj);
+  T2_SMEM(prenet_kernel<W>, sm[K_PRENET]);
+  T2_SMEM(lstm_kernel<W>, sm[K_LSTM]);
+  T2_SMEM(query_kernel<W>, sm[K_QUERY]);
+  T2_SMEM(energy_kernel<W>, sm[K_ENERGY]);
+  T2_SMEM(softmax_ctx_kernel<W>, sm[K_SOFTMAX_CTX]);
+  T2_SMEM(proj_kernel<W>, sm[K_PROJ]);
 #undef T2_SMEM
   const int rows8 = (c.B + T2_BT - 1) / T2_BT;
   const dim3 g_l1(c.A / DEC_UNITS, rows8), g_l2(c.D / DEC_UNITS, rows8);
@@ -401,23 +432,23 @@ static cudaError_t run(const Chunk& c, cudaStream_t s) {
     float* h2_out = c.h2 + (size_t)((st + 1) % 2) * c.B * c.D;
     int* fin_in = c.fin + (size_t)(st % 2) * c.B;
     int* fin_out = c.fin + (size_t)((st + 1) % 2) * c.B;
-    prenet_kernel<W><<<g_p, DEC_THREADS, sm_pre, s>>>(
+    prenet_kernel<W><<<g_p, DEC_THREADS, sm[K_PRENET], s>>>(
         c.prev, (const W*)c.pre1, (const W*)c.pre2, c.kp1, c.kp2, c.a2, st,
         c.B, c.n, c.p);
-    lstm_kernel<W><<<g_l1, DEC_THREADS, sm_lstm, s>>>(
+    lstm_kernel<W><<<g_l1, DEC_THREADS, sm[K_LSTM], s>>>(
         c.a2, c.p, c.ctx, c.E, h1_in, c.A, (const W*)c.w1, c.b1, c.c1, h1_out,
         c.B, c.A);
-    query_kernel<W><<<g_q, DEC_THREADS, sm_q, s>>>(h1_out, (const W*)c.wq, c.q,
-                                                   c.A, c.datt);
-    energy_kernel<W><<<g_e, SM_THREADS, sm_e, s>>>(
+    query_kernel<W><<<g_q, DEC_THREADS, sm[K_QUERY], s>>>(
+        h1_out, (const W*)c.wq, c.q, c.A, c.datt);
+    energy_kernel<W><<<g_e, SM_THREADS, sm[K_ENERGY], s>>>(
         c.q, c.w, c.wc, (const W*)c.k2, (const W*)c.v, proc, c.e, c.T, c.datt,
         c.ks);
-    softmax_ctx_kernel<W><<<g_s, SM_THREADS, sm_sm, s>>>(
+    softmax_ctx_kernel<W><<<g_s, SM_THREADS, sm[K_SOFTMAX_CTX], s>>>(
         c.e, c.emask, mem, c.w, c.wc, c.ctx, c.align, fin_in, st, c.B, c.T, c.E);
-    lstm_kernel<W><<<g_l2, DEC_THREADS, sm_lstm, s>>>(
+    lstm_kernel<W><<<g_l2, DEC_THREADS, sm[K_LSTM], s>>>(
         h1_out, c.A, c.ctx, c.E, h2_in, c.D, (const W*)c.w2, c.b2, c.c2, h2_out,
         c.B, c.D);
-    proj_kernel<W><<<g_j, DEC_THREADS, sm_pj, s>>>(
+    proj_kernel<W><<<g_j, DEC_THREADS, sm[K_PROJ], s>>>(
         h2_out, c.ctx, (const W*)c.wpe, c.bpe, c.mel, c.gate, c.prev, fin_in,
         fin_out, c.len, st, c.t0 + st, c.gate_logit, c.B, c.D, c.E, c.n);
     err = cudaGetLastError();
@@ -442,7 +473,10 @@ int decoder_chunk(int bf16, const void* pre1, const void* pre2, const void* w1,
                   void* align, int B, int T, int n, int p, int E, int A, int D,
                   int datt, int ks, int cs, int t0, float gate_logit,
                   void* stream) {
-  if (A % DEC_UNITS || D % DEC_UNITS || ks % 2 == 0) return (int)cudaErrorInvalidValue;
+  size_t need;
+  int have;
+  if (chunk_limits(T, n, p, E, A, D, datt, ks, &need, &have) != 0)
+    return (int)cudaErrorInvalidValue;
   Chunk c{pre1, pre2, w1, w2, wq, k2, v, wpe,
           (const float*)b1, (const float*)b2, (const float*)bpe,
           mem, proc, (const float*)emask, (const float*)kp1, (const float*)kp2,
@@ -453,6 +487,12 @@ int decoder_chunk(int bf16, const void* pre1, const void* pre2, const void* w1,
           B, T, n, p, E, A, D, datt, ks, cs, t0, gate_logit};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(bf16 ? run<__nv_bfloat16>(c, s) : run<float>(c, s));
+}
+
+// chunk_limits for Python (kernels/decoder_batch.py:kernel_limits).
+int decoder_chunk_limits(int T, int n, int p, int E, int A, int D, int datt,
+                         int ks, size_t* need, int* have) {
+  return chunk_limits(T, n, p, E, A, D, datt, ks, need, have);
 }
 
 const char* error_string(int err) {

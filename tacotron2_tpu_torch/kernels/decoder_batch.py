@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -38,7 +38,9 @@ from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks, to_blocks
 NEG = -1e30       # additive attention mask (the TPU kernels' -inf stand-in)
 GATE_MASK = 1e3   # gate value of finished rows (reference model.py:495)
 _DEC_UNITS = 8    # hidden units per LSTM block in csrc/decoder_batch.cu
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+# csrc/decoder_batch.cu's kernels, in the order of its chunk_smem
+_KERNELS = ("prenet_kernel", "lstm_kernel", "query_kernel", "energy_kernel",
+            "softmax_ctx_kernel", "proj_kernel")
 
 
 def gate_logit_threshold(cfg: Tacotron2Config) -> float:
@@ -130,28 +132,36 @@ def attention_inputs(memory: torch.Tensor, processed: torch.Tensor,
             emask)
 
 
-def kernel_limits(cfg: Tacotron2Config, t_in: int) -> Optional[str]:
+def kernel_limits(cfg: Tacotron2Config, t_in: int,
+                  device: Union[str, torch.device]) -> Optional[str]:
     """Why the CUDA chunk cannot run this config at encoder length
-    ``t_in``, or None when it can."""
-    return _limits(cfg.prenet_dim, cfg.encoder_embedding_dim,
+    ``t_in`` on ``device``, or None when it can. The kernel's source
+    answers (``decoder_chunk_limits``), so this builds it if needed."""
+    return _limits(torch.device(device), t_in,
+                   cfg.n_mel_channels * cfg.n_frames_per_step,
+                   cfg.prenet_dim, cfg.encoder_embedding_dim,
                    cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
-                   cfg.attention_location_kernel_size, t_in)
+                   cfg.attention_dim, cfg.attention_location_kernel_size)
 
 
-def _limits(p: int, e: int, a: int, d: int, ks: int, t_in: int
-            ) -> Optional[str]:
-    if a % _DEC_UNITS or d % _DEC_UNITS:
+def _limits(device: torch.device, T: int, n: int, p: int, e: int, a: int,
+            d: int, datt: int, ks: int) -> Optional[str]:
+    lib = _build.load("decoder_batch", _SIGNATURES)
+    need, have = ctypes.c_size_t(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.decoder_chunk_limits(T, n, p, e, a, d, datt, ks,
+                                        ctypes.byref(need), ctypes.byref(have))
+    if code == 0:
+        return None
+    if code == 1:
         return f"LSTM widths must be multiples of {_DEC_UNITS}"
-    if ks % 2 == 0:
+    if code == 2:
         return "location kernel size must be odd"
-    k = max(p + e + a, a + e + d)
-    # lstm_kernel: 8 rows of input, 32 x 8 x 32 partial sums, 8 x 32 gates
-    if 4 * (8 * k + 32 * 8 * 32 + 8 * 32) > _SMEM_LIMIT:
-        return f"LSTM input width {k} exceeds the kernel's shared memory"
-    # softmax_ctx_kernel: the row's T weights and 256 + 64 scratch floats
-    if 4 * (t_in + 256 + 64) > _SMEM_LIMIT:
-        return f"encoder length {t_in} exceeds the kernel's shared memory"
-    return None
+    if code < 0:
+        raise RuntimeError("decoder kernel: the device's shared-memory limit "
+                           "could not be read")
+    return (f"{_KERNELS[code - 3]} needs {need.value} bytes of shared memory "
+            f"at encoder length {T}; a block may use {have.value}")
 
 
 # ------------------------------------------------------------------ plain
@@ -222,7 +232,10 @@ def _cell(g: torch.Tensor, c: torch.Tensor):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"decoder_chunk": [_I] + [_P] * 32 + [_I] * 11
-               + [ctypes.c_float, _P]}
+               + [ctypes.c_float, _P],
+               "decoder_chunk_limits": [_I] * 8 + [
+                   ctypes.POINTER(ctypes.c_size_t),
+                   ctypes.POINTER(ctypes.c_int)]}
 
 
 def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
@@ -262,7 +275,7 @@ def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
         if not t.is_cuda or t.device != mem.device or not t.is_contiguous():
             raise ValueError(f"{name}: decoder kernel inputs must be "
                              f"contiguous tensors on one CUDA device")
-    reason = _limits(p, e, a, d, ks, T)
+    reason = _limits(mem.device, T, n, p, e, a, d, datt, ks)
     if reason is not None:
         raise ValueError(f"decoder kernel: {reason}")
 

@@ -17,7 +17,7 @@ and how its design answers it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -29,6 +29,15 @@ _ENC_UNITS = 4  # hidden units per block in csrc/encoder_lstm.cu
 Stacks = Tuple[torch.Tensor, ...]
 
 
+class PackedBiLSTM(NamedTuple):
+    """Both directions' weights as the kernel takes them
+    (``pack_direction``); packed once per model and dtype."""
+    wf: torch.Tensor
+    bf: torch.Tensor
+    wb: torch.Tensor
+    bb: torch.Tensor
+
+
 def pack_direction(p, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """One direction's weights as the kernel takes them: ``[wi ; wh]`` in
     ``dtype``, block-major for blocks of 4 units (``lstm_layout``), shape
@@ -36,6 +45,13 @@ def pack_direction(p, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     w = torch.cat([p.w_ih, p.w_hh], dim=1).t().to(dtype)
     bias = (p.b_ih + p.b_hh).float().contiguous()
     return to_blocks(w, _ENC_UNITS), bias
+
+
+def pack_bilstm(fwd, bwd, dtype: torch.dtype) -> PackedBiLSTM:
+    """``fwd``/``bwd`` carry ``w_ih, w_hh, b_ih, b_hh``
+    (``ops.lstm.LSTMWeights``)."""
+    return PackedBiLSTM(*pack_direction(fwd, dtype),
+                        *pack_direction(bwd, dtype))
 
 
 def bilstm_forward_plain(wf: torch.Tensor, bf: torch.Tensor,
@@ -135,16 +151,13 @@ def bilstm_forward(wf: torch.Tensor, bf: torch.Tensor, wb: torch.Tensor,
 bilstm_forward.launches = 0
 
 
-def bilstm_scans(fwd, bwd, xs: torch.Tensor, xsr: torch.Tensor,
-                 compute_dtype: Optional[torch.dtype]
+def bilstm_scans(packed: PackedBiLSTM, xs: torch.Tensor, xsr: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both directions' LSTM outputs: (hf, hb_scan), each (B, T, H) fp32,
-    hb_scan in xsr's (reversed) time order. ``fwd``/``bwd`` carry
-    ``w_ih, w_hh, b_ih, b_hh`` (``ops.lstm.LSTMWeights``)."""
-    dtype = compute_dtype or torch.float32
-    wf, bf = pack_direction(fwd, dtype)
-    wb, bb = pack_direction(bwd, dtype)
-    stacks = bilstm_forward(wf, bf, wb, bb, xs.to(dtype).contiguous(),
+    hb_scan in xsr's (reversed) time order; the products in the packed
+    weights' dtype."""
+    dtype = packed.wf.dtype
+    stacks = bilstm_forward(*packed, xs.to(dtype).contiguous(),
                             xsr.to(dtype).contiguous())
     hf, hb = stacks[2], stacks[3]
     return (hf.transpose(0, 1).float(), hb.transpose(0, 1).float())

@@ -30,10 +30,12 @@ from torch import nn
 
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.kernels import decoder_batch as db
+from tacotron2_tpu_torch.kernels import encoder_lstm
 from tacotron2_tpu_torch.ops import initializers as init
 from tacotron2_tpu_torch.ops.layers import (batchnorm, conv1d, dense, dropout,
                                             length_mask)
-from tacotron2_tpu_torch.ops.lstm import (bilstm, lstm_cell, lstm_weights)
+from tacotron2_tpu_torch.ops.lstm import (LSTMWeights, bilstm, lstm_cell,
+                                          lstm_weights)
 
 MASKED_GATE_ENERGY = 1e3  # reference model.py:495
 
@@ -214,18 +216,33 @@ def _conv_bn_apply(seq: nn.Sequential, x: torch.Tensor,
 # Encoder
 # ======================================================================
 
+def encoder_lstm_weights(model: Tacotron2) -> Tuple[LSTMWeights, LSTMWeights]:
+    lstm = model.encoder.lstm
+    return lstm_weights(lstm, "_l0"), lstm_weights(lstm, "_l0_reverse")
+
+
+def pack_encoder_lstm(model: Tacotron2, dtype: torch.dtype
+                      ) -> encoder_lstm.PackedBiLSTM:
+    """The encoder BiLSTM's weights as its kernel takes them, for reuse
+    across ``encode`` calls (``packed_lstm``)."""
+    return encoder_lstm.pack_bilstm(*encoder_lstm_weights(model), dtype)
+
+
 def encode(model: Tacotron2, text: torch.Tensor, text_lengths: torch.Tensor,
-           cfg: Tacotron2Config, *, compute_dtype=None) -> torch.Tensor:
+           cfg: Tacotron2Config, *, compute_dtype=None,
+           packed_lstm: Optional[encoder_lstm.PackedBiLSTM] = None
+           ) -> torch.Tensor:
     """text (B, T_in) int -> encoder memory (B, T_in, e) fp32.
 
     3x [conv5 -> batchnorm (eval) -> relu] then the length-aware BiLSTM
-    (reference Encoder, model.py:149-201); dropout is off at inference."""
+    (reference Encoder, model.py:149-201); dropout is off at inference.
+    ``packed_lstm`` is ``pack_encoder_lstm(model, compute_dtype or
+    float32)``, packed here if omitted."""
     x = model.embedding.weight[text.long()]
     for seq in model.encoder.convolutions:
         x = torch.relu(_conv_bn_apply(seq, x, compute_dtype))
-    lstm = model.encoder.lstm
-    return bilstm(lstm_weights(lstm, "_l0"), lstm_weights(lstm, "_l0_reverse"),
-                  x, text_lengths, compute_dtype=compute_dtype)
+    return bilstm(*encoder_lstm_weights(model), x, text_lengths,
+                  compute_dtype=compute_dtype, packed=packed_lstm)
 
 
 # ======================================================================
@@ -559,6 +576,7 @@ def infer(model: Tacotron2, text: torch.Tensor, text_lengths: torch.Tensor,
 def infer_batch_fused(model: Tacotron2, text: torch.Tensor,
                       text_lengths: torch.Tensor, cfg: Tacotron2Config, *,
                       packed: Optional[db.BatchDecoderParams] = None,
+                      packed_lstm: Optional[encoder_lstm.PackedBiLSTM] = None,
                       max_steps: Optional[int] = None,
                       chunk_steps: int = 64, compute_dtype=None,
                       generator: Optional[torch.Generator] = None,
@@ -566,8 +584,9 @@ def infer_batch_fused(model: Tacotron2, text: torch.Tensor,
                       ) -> InferenceResult:
     """``infer`` through the batched decoder chunk (kernels/decoder_batch):
     the hand-written CUDA kernel on a CUDA model, its plain version on a
-    CPU one. ``packed`` is the reusable ``pack_batch_decoder_params``
-    result (built on the fly if omitted). ``generator`` with
+    CPU one. ``packed`` and ``packed_lstm`` are the reusable
+    ``pack_batch_decoder_params`` and ``pack_encoder_lstm`` results in the
+    compute dtype (built on the fly if omitted). ``generator`` with
     ``prenet_dropout_at_inference`` runs the reference's inference-time
     prenet dropout; None runs the deterministic prenet. The model must
     already be on ``device``."""
@@ -582,7 +601,7 @@ def infer_batch_fused(model: Tacotron2, text: torch.Tensor,
     if not cfg.prenet_dropout_at_inference:
         generator = None
     memory = encode(model, text, text_lengths, cfg,
-                    compute_dtype=compute_dtype)
+                    compute_dtype=compute_dtype, packed_lstm=packed_lstm)
     processed = processed_memory_of(model, memory, compute_dtype)
     mask = length_mask(text_lengths, memory.shape[1])
     mel, gate, align, lengths = db.decode_autoregressive_batch(

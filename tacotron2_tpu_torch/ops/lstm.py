@@ -93,13 +93,19 @@ def _reverse_by_length(xs: torch.Tensor, lengths: torch.Tensor
 
 def bilstm(fwd: LSTMWeights, bwd: LSTMWeights, xs: torch.Tensor,
            lengths: torch.Tensor,
-           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           compute_dtype: Optional[torch.dtype] = None,
+           packed: Optional[encoder_lstm.PackedBiLSTM] = None
+           ) -> torch.Tensor:
     """Bidirectional LSTM with per-row lengths. (B, T, in) -> (B, T, 2H)
-    fp32, exactly 0 at t >= length."""
+    fp32, exactly 0 at t >= length. ``packed`` is the reusable
+    ``encoder_lstm.pack_bilstm(fwd, bwd, compute_dtype or float32)``
+    (packed here if omitted)."""
+    if packed is None:
+        packed = encoder_lstm.pack_bilstm(fwd, bwd,
+                                          compute_dtype or torch.float32)
     mask = length_mask(lengths, xs.shape[1])[:, :, None]
     xs_rev = _reverse_by_length(xs, lengths)
-    fwd_out, bwd_scan = encoder_lstm.bilstm_scans(fwd, bwd, xs, xs_rev,
-                                                  compute_dtype)
+    fwd_out, bwd_scan = encoder_lstm.bilstm_scans(packed, xs, xs_rev)
     bwd_out = _reverse_by_length(bwd_scan, lengths)
     out = torch.cat([fwd_out, bwd_out], dim=-1)
     return torch.where(mask, out, torch.zeros_like(out))

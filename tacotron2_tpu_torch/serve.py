@@ -64,7 +64,7 @@ class BatchingSynthesizer:
                        if deterministic else config)
         if self.device.type == "cuda":
             for t in self.config.text_buckets:
-                reason = db.kernel_limits(self.config, t)
+                reason = db.kernel_limits(self.config, t, self.device)
                 if reason is not None:
                     raise ValueError(f"decoder kernel cannot serve text "
                                      f"bucket {t}: {reason}")
@@ -73,8 +73,9 @@ class BatchingSynthesizer:
         self.max_wait_ms = max_wait_ms
         self.max_steps = max_steps or config.max_decoder_steps
         # packed once: the layout is independent of the text bucket
-        self._packed = db.pack_batch_decoder_params(
-            self.model, self.config.torch_compute_dtype)
+        dtype = self.config.torch_compute_dtype
+        self._packed = db.pack_batch_decoder_params(self.model, dtype)
+        self._packed_lstm = tacotron2.pack_encoder_lstm(self.model, dtype)
         self._queue: "queue.Queue" = queue.Queue()
         self._closed = False
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -122,7 +123,8 @@ class BatchingSynthesizer:
     def _infer(self, text: np.ndarray, lengths: np.ndarray):
         res = tacotron2.infer_batch_fused(
             self.model, torch.from_numpy(text), torch.from_numpy(lengths),
-            self.config, packed=self._packed, max_steps=self.max_steps,
+            self.config, packed=self._packed, packed_lstm=self._packed_lstm,
+            max_steps=self.max_steps,
             device=self.device)
         return (res.mel_postnet.cpu().numpy(), res.alignments.cpu().numpy(),
                 res.mel_lengths.cpu().numpy())

@@ -5,8 +5,10 @@ interpret mode on the CPU).
 On the CPU the port's wrapper runs its plain version, which carries the
 CUDA kernel's arithmetic; the kernel itself is held against that plain
 version on the card by tests/test_torch_kernels_gpu.py. Inputs come
-from numpy seeds and go to both packages. fp32 throughout, atol 1e-4 (the
-JAX package's own tolerance for this kernel, tests/test_decoder_batch.py).
+from numpy seeds and go to both packages. At fp32, atol 1e-4 (the JAX
+package's own tolerance for this kernel, tests/test_decoder_batch.py); at
+bf16 (the serving default), atol 1e-2 over three 6-step chunks, where the
+worst field differs by 1.2e-3 (mel) on values up to ~0.5.
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ DIMS = dict(
     max_decoder_steps=24, postnet_embedding_dim=32,
     postnet_n_convolutions=2, compute_dtype="float32")
 ATOL = 1e-4
+ATOL_BF16 = (1e-2, 0.0)  # (atol, rtol): ~8x the worst bf16 reading, 1.2e-3
 
 
 def configs(**kw):
@@ -57,34 +60,46 @@ def setup(jcfg, tcfg, B, seed=0, t_in=20):
     return params, model, memory, processed, mask, lengths
 
 
-def close(got, want, what):
+def close(got, want, what, tol=(ATOL, 0.0)):
     np.testing.assert_allclose(np.asarray(got, np.float32),
-                               np.asarray(want, np.float32), atol=ATOL,
-                               err_msg=what)
+                               np.asarray(want, np.float32), atol=tol[0],
+                               rtol=tol[1], err_msg=what)
 
 
-def check_carry(tc, jc):
+def check_carry(tc, jc, tol=(ATOL, 0.0)):
     np.testing.assert_array_equal(tc.finished.numpy(), np.asarray(jc.finished))
     np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
     assert tc.t == int(jc.t)
     for field in jc.state._fields:
         close(getattr(tc.state, field), getattr(jc.state, field),
-              f"state.{field}")
-    close(tc.prev_mel, jc.prev_mel, "prev_mel")
+              f"state.{field}", tol)
+    close(tc.prev_mel, jc.prev_mel, "prev_mel", tol)
 
 
-@pytest.mark.parametrize("B,gate_threshold,r,dropout", [
-    (4, 0.99, 1, False),   # runs to the cap, ragged lengths
-    (4, 0.3, 1, False),    # per-row gate latch
-    (3, 0.99, 2, False),   # reduction factor r=2, odd batch
-    (21, 0.3, 1, False),   # three of the TPU kernel's 8-row tiles, latch
-    (4, 0.99, 1, True),    # prenet keep masks drawn by the JAX package
+def case(B, gate_threshold, r, dropout, dtype="float32"):
+    cid = f"{B}-{gate_threshold}-{r}-{dropout}"
+    return pytest.param(B, gate_threshold, r, dropout, dtype,
+                        id=cid if dtype == "float32" else f"{cid}-{dtype}")
+
+
+@pytest.mark.parametrize("B,gate_threshold,r,dropout,dtype", [
+    case(4, 0.99, 1, False),   # runs to the cap, ragged lengths
+    case(4, 0.3, 1, False),    # per-row gate latch
+    case(3, 0.99, 2, False),   # reduction factor r=2, odd batch
+    case(21, 0.3, 1, False),   # three of the TPU kernel's 8-row tiles, latch
+    case(4, 0.99, 1, True),    # prenet keep masks drawn by the JAX package
+    # the serving default: bf16 cast points (x1, x2, x3 and q rounded
+    # before each product, memory and processed memory in bf16)
+    case(4, 0.99, 1, False, "bfloat16"),
+    case(3, 0.99, 2, True, "bfloat16"),
 ])
-def test_chunk_matches_jax_kernel(B, gate_threshold, r, dropout):
+def test_chunk_matches_jax_kernel(B, gate_threshold, r, dropout, dtype):
     jcfg, tcfg = configs(gate_threshold=gate_threshold, n_frames_per_step=r)
     params, model, memory, processed, mask, _ = setup(jcfg, tcfg, B)
-    jfp = jdb.pack_batch_decoder_params(params, jcfg, dtype=jnp.float32)
-    tfp = db.pack_batch_decoder_params(model, torch.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tol = ATOL_BF16 if dtype == "bfloat16" else (ATOL, 0.0)
+    jfp = jdb.pack_batch_decoder_params(params, jcfg, dtype=jdt)
+    tfp = db.pack_batch_decoder_params(model, tdt)
     rng = jax.random.PRNGKey(42) if dropout else None
     jmem, jproc, jmask = map(jnp.asarray, (memory, processed, mask))
     tmem, tproc, tmask = map(torch.from_numpy, (memory, processed, mask))
@@ -100,14 +115,14 @@ def test_chunk_matches_jax_kernel(B, gate_threshold, r, dropout):
                     torch.tensor(np.asarray(k2)[:, :B]))
         jc, (jmel, jgate, jalign) = jdb.decode_chunk_batch(
             jfp, jc, jmem, jproc, jmask, jcfg, chunk_steps=6,
-            dtype=jnp.float32, interpret=True, rng=rng)
+            dtype=jdt, interpret=True, rng=rng)
         tc, (tmel, tgate, talign) = db.decode_chunk_batch(
             tfp, tc, tmem, tproc, tmask, tcfg, chunk_steps=6,
             keep_masks=keep)
-        close(tmel, jmel, "mel")
-        close(tgate, jgate, "gate")
-        close(talign, jalign, "align")
-    check_carry(tc, jc)
+        close(tmel, jmel, "mel", tol)
+        close(tgate, jgate, "gate", tol)
+        close(talign, jalign, "align", tol)
+    check_carry(tc, jc, tol)
 
 
 def test_autoregressive_matches_jax_kernel():

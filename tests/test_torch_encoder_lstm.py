@@ -82,9 +82,9 @@ def test_bilstm_scans_match_jax(inputs):
     fwd, bwd, xs, xsr, _ = inputs
     want = jel.bilstm_scans(fwd, bwd, jnp.asarray(xs), jnp.asarray(xsr),
                             JCFG)
-    got = el.bilstm_scans(torch_weights(fwd), torch_weights(bwd),
-                          torch.tensor(xs), torch.tensor(xsr),
-                          torch.bfloat16)
+    packed = el.pack_bilstm(torch_weights(fwd), torch_weights(bwd),
+                            torch.bfloat16)
+    got = el.bilstm_scans(packed, torch.tensor(xs), torch.tensor(xsr))
     for g, w in zip(got, want):
         close(g, w)
 
@@ -108,8 +108,9 @@ def test_plain_version_counts_calls(inputs):
     fwd, bwd, xs, xsr, _ = inputs
     plain0 = el.bilstm_forward_plain.calls
     launches0 = el.bilstm_forward.launches
-    el.bilstm_scans(torch_weights(fwd), torch_weights(bwd),
-                    torch.tensor(xs[:2, :3]), torch.tensor(xsr[:2, :3]),
-                    torch.float32)
+    packed = el.pack_bilstm(torch_weights(fwd), torch_weights(bwd),
+                            torch.float32)
+    el.bilstm_scans(packed, torch.tensor(xs[:2, :3]),
+                    torch.tensor(xsr[:2, :3]))
     assert el.bilstm_forward_plain.calls == plain0 + 1
     assert el.bilstm_forward.launches == launches0

@@ -6,9 +6,14 @@ installed: ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``. The
 plain versions are held against the JAX package on the CPU by
 tests/test_torch_encoder_lstm.py and tests/test_torch_decoder_batch.py.
 
-Tolerances: fp32 1e-4 absolute (sums in another order); bf16 3e-2 absolute
-(one bf16 rounding flip of an operand, 2^-8 relative, carried through a few
-steps of the recurrence). TF32 is off for the plain versions' products.
+Tolerances. Decoder chunk: each output and carry field within its own
+share of its largest |value| (DEC_REL), about ten times the worst reading
+of that field on the card, so that attention weights of ~1/T are held as
+tightly as mel values; the kernel and its plain version share every cast
+point and differ only in the order of fp32 sums. Encoder: fp32 1e-4 absolute; bf16 3e-2
+absolute (one bf16 rounding flip of an operand, 2^-8 relative, carried
+through a few steps of the recurrence). TF32 is off for the plain versions'
+products.
 """
 
 import pytest
@@ -27,7 +32,19 @@ CFG = Tacotron2Config(
     attention_location_kernel_size=31, n_mel_channels=16,
     postnet_embedding_dim=32, postnet_n_convolutions=2,
     compute_dtype="float32")
-DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)]
+DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)]  # encoder, atol
+CARRY = ("h1", "c1", "h2", "c2", "w", "wc", "ctx", "prev")
+# Decoder chunk: largest |err| of each field as a share of the field's
+# largest |value|, about ten times the worst reading on the card over these
+# cases and chip_smoke.py's full-width chunks (the same table).
+DEC_REL = {
+    torch.bfloat16: dict(mel=2e-2, gate=9e-2, align=2e-2, h1=2e-2, c1=2e-2,
+                         h2=8e-3, c2=9e-3, w=2e-2, wc=3e-3, ctx=5e-3,
+                         prev=2e-2),
+    torch.float32: dict(mel=6e-6, gate=4e-5, align=4e-6, h1=3e-6, c1=3e-6,
+                        h2=3e-6, c2=2e-6, w=3e-6, wc=3e-6, ctx=3e-6,
+                        prev=5e-6),
+}
 
 
 @pytest.fixture
@@ -46,40 +63,80 @@ def zero_carry(B, T, n, device):
                          z(B, T), z(B, T), z(B, 128), z(B, n), i32(), i32())
 
 
+def chunk_case(device, dtype, B, r, dropout):
+    """A 16-step chunk at T=37 from a zero carry: (fp, args, kwargs)."""
+    cfg = CFG.replace(gate_threshold=0.3, n_frames_per_step=r)
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0)).to(device)
+    fp = db.pack_batch_decoder_params(model, dtype)
+    g = torch.Generator(device=device).manual_seed(1)
+    T = 37
+    mem = torch.randn(B, T, 128, generator=g, device=device) * 0.5
+    proc = torch.randn(B, T, 128, generator=g, device=device) * 0.5
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    mask = torch.arange(T, device=device)[None] < lengths[:, None]
+    mem, proc, emask = db.attention_inputs(mem, proc, mask, dtype)
+    n, p = fp.pre1.shape
+    carry = zero_carry(B, T, n, device)
+    kp = (None, None)
+    if dropout:
+        kp = tuple((torch.rand(16, B, p, generator=g, device=device) < 0.5
+                    ).float() for _ in range(2))
+    kw = dict(t0=3, chunk_steps=16, gate_logit=-0.5, kp1=kp[0], kp2=kp[1])
+    return (fp, carry, mem, proc, emask), kw
+
+
+def assert_chunks_close(got, want, rel):
+    """Each output and carry field within ``rel[field]`` times the field's
+    largest |value|; finished and lengths exactly."""
+    pairs = [(f, getattr(got, f), getattr(want, f))
+             for f in ("mel", "gate", "align")]
+    pairs += [(f, getattr(got.carry, f), getattr(want.carry, f))
+              for f in CARRY]
+    for name, a, b in pairs:
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        assert err <= rel[name] * scale, (
+            f"{name}: max |err| {err} beyond {rel[name]} of the field's "
+            f"largest value {scale}")
+    assert torch.equal(got.carry.fin, want.carry.fin)
+    assert torch.equal(got.carry.lens, want.carry.lens)
+
+
+def perturbed(out):
+    """Attention off: align scaled by 1.05; w shifted by one encoder
+    position."""
+    return [out._replace(align=out.align * 1.05),
+            out._replace(carry=out.carry._replace(
+                w=torch.roll(out.carry.w, 1, dims=1)))]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("B,r,dropout", [(4, 1, False), (21, 2, True)])
 def test_decoder_kernel_matches_plain(cuda, dtype, tol, B, r, dropout):
-    """Every output and carry field; finished and lengths exactly."""
-    cfg = CFG.replace(gate_threshold=0.3, n_frames_per_step=r)
-    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0)).to(cuda)
-    fp = db.pack_batch_decoder_params(model, dtype)
-    g = torch.Generator(device=cuda).manual_seed(1)
-    T = 37
-    mem = torch.randn(B, T, 128, generator=g, device=cuda) * 0.5
-    proc = torch.randn(B, T, 128, generator=g, device=cuda) * 0.5
-    lengths = torch.randint(1, T + 1, (B,), generator=g, device=cuda)
-    mask = torch.arange(T, device=cuda)[None] < lengths[:, None]
-    mem, proc, emask = db.attention_inputs(mem, proc, mask, dtype)
-    n, p = fp.pre1.shape
-    carry = zero_carry(B, T, n, cuda)
-    kp = (None, None)
-    if dropout:
-        kp = tuple((torch.rand(16, B, p, generator=g, device=cuda) < 0.5
-                    ).float() for _ in range(2))
-    kw = dict(t0=3, chunk_steps=16, gate_logit=-0.5, kp1=kp[0], kp2=kp[1])
-    got = db.decoder_chunk(fp, carry, mem, proc, emask, **kw)
-    want = db.decoder_chunk_plain(fp, carry, mem, proc, emask, **kw)
+    """Every output and carry field; finished and lengths exactly. The
+    same check rejects the kernel's output with its attention perturbed."""
+    args, kw = chunk_case(cuda, dtype, B, r, dropout)
+    got = db.decoder_chunk(*args, **kw)
+    want = db.decoder_chunk_plain(*args, **kw)
     torch.cuda.synchronize()
-    for name in ("mel", "gate", "align"):
-        torch.testing.assert_close(getattr(got, name), getattr(want, name),
-                                   atol=tol, rtol=0, msg=name)
-    for name in ("h1", "c1", "h2", "c2", "w", "wc", "ctx", "prev"):
-        torch.testing.assert_close(getattr(got.carry, name),
-                                   getattr(want.carry, name), atol=tol,
-                                   rtol=0, msg=name)
-    assert torch.equal(got.carry.fin, want.carry.fin)
-    assert torch.equal(got.carry.lens, want.carry.lens)
+    assert_chunks_close(got, want, DEC_REL[dtype])
+    for bad in perturbed(got):
+        with pytest.raises(AssertionError):
+            assert_chunks_close(bad, want, DEC_REL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_check_rejects_perturbed_attention(dtype):
+    """On the CPU, with the plain version: the decoder comparison passes an
+    output against itself and fails it with align 5% off or w shifted by
+    one position, at the limits the card's comparison uses."""
+    args, kw = chunk_case(torch.device("cpu"), dtype, 4, 1, False)
+    out = db.decoder_chunk_plain(*args, **kw)
+    assert_chunks_close(out, out, DEC_REL[dtype])
+    for bad in perturbed(out):
+        with pytest.raises(AssertionError):
+            assert_chunks_close(bad, out, DEC_REL[dtype])
 
 
 @pytest.mark.gpu
