@@ -1,5 +1,6 @@
-// Encoder BiLSTM forward: both directions of the text encoder's BiLSTM over
-// all T steps, for the batched serving path.
+// Encoder BiLSTM: the forward of both directions of the text encoder's
+// BiLSTM over all T steps (serving and training), and below, run_bwd, its
+// backward chain (training).
 //
 // Replaces the TPU kernel tacotron2_tpu/kernels/encoder_lstm.py
 // _make_fwd_kernel (called by _fwd_call). Same contract as that kernel:
@@ -123,7 +124,88 @@ static cudaError_t run(const void* xf, const void* xr, const void* wf,
   return cudaSuccess;
 }
 
+// ------------------------------------------------------------- backward
+//
+// Replaces the TPU kernel tacotron2_tpu/kernels/encoder_lstm.py
+// _make_bwd_kernel (called by _bwd_call): the reverse-time data-gradient
+// chain of both directions. Per step t, from T-1 down to 0, for each
+// direction: dh = dh_{t+1 carry} + dh_in[t]; the cell backward
+// (lstm_unit_bwd) gives dg[t], rounded to the operand type; then
+// dx = dg[t] @ [wi ; wh]^T in fp32, whose first N columns are dx[t] and last
+// H columns the carry into step t-1. The weight gradients are not formed
+// here: the caller takes them as single products over T*B.
+//
+// What bounds it on the H100: the same as the forward -- per step, a
+// (B x 4H) @ (4H x (N+H)) product per direction (each weight element feeds
+// T2_BT rows) and the launches. Design: two launches per step covering both
+// directions, lstm_gates_bwd_kernel (one thread per row and unit) and
+// tile_product_kernel (one block per 32 output columns and 8 rows, the
+// transposed weights column-tiled, kernels/lstm_layout.py to_col_tiles);
+// the product lands in a (B, N+H) scratch per direction, whose first N
+// columns are copied into dx[t] and whose last H columns the next step's
+// gate launch reads.
+template <typename W>
+static cudaError_t run_bwd(const W* wtf, const W* wtb, const W* gf,
+                           const W* gb, const float* cf, const float* cb,
+                           const float* dhf, const float* dhb, W* dgf, W* dgb,
+                           float* dxf, float* dxb, float* dcf, float* dcb,
+                           float* scrf, float* scrb, int B, int T, int N,
+                           int H, cudaStream_t stream) {
+  const int K = 4 * H, NO = N + H;
+  cudaError_t err = tile_product_prepare<W>(K);
+  if (err != cudaSuccess) return err;
+  const dim3 g_gates((B * H + 255) / 256, 2);
+  const dim3 g_prod((NO + TP_COLS - 1) / TP_COLS, (B + T2_BT - 1) / T2_BT, 2);
+  const size_t smem = tile_product_smem(K);
+  const size_t gs = (size_t)B * K, hs = (size_t)B * H;
+  for (int t = T - 1; t >= 0; --t) {
+    const bool last = t == T - 1;
+    GatesBwd<W> a0{gf + t * gs, cf + t * hs, t ? cf + (t - 1) * hs : nullptr,
+                   last ? nullptr : scrf + N, NO, dhf + t * hs, nullptr,
+                   1.0f, dcf, dgf + t * gs};
+    GatesBwd<W> a1{gb + t * gs, cb + t * hs, t ? cb + (t - 1) * hs : nullptr,
+                   last ? nullptr : scrb + N, NO, dhb + t * hs, nullptr,
+                   1.0f, dcb, dgb + t * gs};
+    lstm_gates_bwd_kernel<W><<<g_gates, 256, 0, stream>>>(a0, a1, B, H);
+    tile_product_kernel<W><<<g_prod, TP_THREADS, smem, stream>>>(
+        dgf + t * gs, wtf, scrf, dgb + t * gs, wtb, scrb, B, K, NO);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t xo = (size_t)t * B * N;
+    err = cudaMemcpy2DAsync(dxf + xo, N * sizeof(float), scrf,
+                            NO * sizeof(float), N * sizeof(float), B,
+                            cudaMemcpyDeviceToDevice, stream);
+    if (err != cudaSuccess) return err;
+    err = cudaMemcpy2DAsync(dxb + xo, N * sizeof(float), scrb,
+                            NO * sizeof(float), N * sizeof(float), B,
+                            cudaMemcpyDeviceToDevice, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 extern "C" {
+
+// Backward chain of both directions (see run_bwd). wt*: ([wi ; wh]^T)
+// column-tiled, (ceil((N+H)/32), 4H, 32); g*: (T, B, 4H); c*, dh*:
+// (T, B, H) fp32; out dg* (T, B, 4H), dx* (T, B, N) fp32. dc* (B, H) must
+// hold zeros; scr* are (B, N+H) fp32 scratch. Returns cudaError_t.
+int encoder_lstm_bwd(int bf16, const void* wtf, const void* wtb,
+                     const void* gf, const void* gb, const void* cf,
+                     const void* cb, const void* dhf, const void* dhb,
+                     void* dgf, void* dgb, void* dxf, void* dxb, void* dcf,
+                     void* dcb, void* scrf, void* scrb, int B, int T, int N,
+                     int H, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define T2_ARGS(W)                                                        \
+  (const W*)wtf, (const W*)wtb, (const W*)gf, (const W*)gb,               \
+      (const float*)cf, (const float*)cb, (const float*)dhf,              \
+      (const float*)dhb, (W*)dgf, (W*)dgb, (float*)dxf, (float*)dxb,      \
+      (float*)dcf, (float*)dcb, (float*)scrf, (float*)scrb, B, T, N, H, s
+  if (bf16) return (int)run_bwd<__nv_bfloat16>(T2_ARGS(__nv_bfloat16));
+  return (int)run_bwd<float>(T2_ARGS(float));
+#undef T2_ARGS
+}
 
 // bf16 != 0: operands are __nv_bfloat16, else float. Returns cudaError_t.
 int encoder_lstm_fwd(int bf16, const void* xf, const void* xr, const void* wf,

@@ -149,6 +149,124 @@ __device__ __forceinline__ void block_matvec(const float* x, int K,
   __syncthreads();
 }
 
+// ------------------------------------------------------------- backward
+
+// One unit's LSTM cell backward, the TPU kernels' lstm_gates_bwd: from the
+// stored gate pre-activations (gi, gf, gg, go), c_{t-1}, c_t, the cotangent
+// of h_t and the carried cotangent of c_t, the four gate cotangents dg
+// (i, f, g, o); returns the cotangent of c_{t-1}.
+__device__ __forceinline__ float lstm_unit_bwd(float gi, float gf, float gg,
+                                               float go, float cp, float cn,
+                                               float dh, float dc_in,
+                                               float* dg) {
+  const float i = sigmoid_f(gi), f = sigmoid_f(gf), g = tanhf(gg);
+  const float o = sigmoid_f(go);
+  const float tc = tanhf(cn);
+  const float d_o = dh * tc;
+  const float dc = dc_in + dh * o * (1.0f - tc * tc);
+  dg[0] = dc * g * i * (1.0f - i);
+  dg[1] = dc * cp * f * (1.0f - f);
+  dg[2] = dc * i * (1.0f - g * g);
+  dg[3] = d_o * o * (1.0f - o);
+  return dc * f;
+}
+
+// Pointers of one LSTM's gate backward at one step (lstm_gates_bwd_kernel).
+template <typename W>
+struct GatesBwd {
+  const W* g;              // (B, 4H) gate pre-activations of step t
+  const float* c_new;      // (B, H) c_t
+  const float* c_prev;     // (B, H) c_{t-1}, or null at t = 0
+  const float* dh_carry;   // cotangent of h_t from step t+1, row stride
+  int dh_ld;               //   dh_ld, or null at the chain's start
+  const float* dh_in;      // (B, H) cotangent of h_t from outside, or null
+  const unsigned char* keep;  // (B, H) 0/1 dropout keep mask, or null
+  float scale;             // 1 / (1 - p) of that dropout
+  float* dc;               // (B, H) carried cotangent of c, in/out
+  W* dg;                   // (B, 4H) out: gate cotangents, rounded to W
+};
+
+// Elementwise half of the LSTM backward for one step, one thread per (row,
+// unit), one LSTM per blockIdx.y: dh = dh_carry + dh_in, times the keep
+// mask's scale; then lstm_unit_bwd. The product dg @ [wi ; wh]^T follows in
+// tile_product_kernel.
+template <typename W>
+__global__ void lstm_gates_bwd_kernel(GatesBwd<W> a0, GatesBwd<W> a1, int B,
+                                      int H) {
+  const GatesBwd<W>& a = blockIdx.y ? a1 : a0;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * H) return;
+  const int b = i / H, u = i % H;
+  float dh = 0.0f;
+  if (a.dh_carry) dh = a.dh_carry[(size_t)b * a.dh_ld + u];
+  if (a.dh_in) dh += a.dh_in[i];
+  if (a.keep) dh = dh * (a.keep[i] ? a.scale : 0.0f);
+  const W* g = a.g + (size_t)b * 4 * H;
+  float dg[4];
+  a.dc[i] = lstm_unit_bwd(to_f<W>(g[u]), to_f<W>(g[H + u]),
+                          to_f<W>(g[2 * H + u]), to_f<W>(g[3 * H + u]),
+                          a.c_prev ? a.c_prev[i] : 0.0f, a.c_new[i], dh,
+                          a.dc[i], dg);
+  W* o = a.dg + (size_t)b * 4 * H;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) o[q * H + u] = from_f<W>(dg[q]);
+}
+
+#define TP_COLS 32      // output columns per tile_product_kernel block
+#define TP_THREADS 1024
+
+// Shared memory of one tile_product_kernel block, in bytes.
+inline size_t tile_product_smem(int K) {
+  return gate_product_smem<TP_COLS / 4, TP_THREADS>(K);
+}
+
+// out (B, ncols) fp32 = x (B, K) @ w (K, ncols), x in W, w column-tiled
+// (kernels/lstm_layout.py to_col_tiles: (ceil(ncols / TP_COLS), K, TP_COLS),
+// zero columns past ncols). One block per (column tile, T2_BT rows), up to
+// two independent products by blockIdx.z; the sums are gate_product's.
+template <typename W>
+__global__ void __launch_bounds__(TP_THREADS)
+tile_product_kernel(const W* __restrict__ x0, const W* __restrict__ w0,
+                    float* __restrict__ out0, const W* __restrict__ x1,
+                    const W* __restrict__ w1, float* __restrict__ out1, int B,
+                    int K, int ncols) {
+  extern __shared__ float smem[];
+  const W* x = blockIdx.z ? x1 : x0;
+  const W* w = blockIdx.z ? w1 : w0;
+  float* out = blockIdx.z ? out1 : out0;
+  constexpr int KSPLIT = TP_THREADS / TP_COLS;
+  const int b0 = blockIdx.y * T2_BT;
+  float* xs = smem;
+  float* red = xs + T2_BT * K;
+  float* gsm = red + KSPLIT * T2_BT * TP_COLS;
+  for (int k = threadIdx.x; k < K; k += TP_THREADS) {
+    float v[T2_BT];
+#pragma unroll
+    for (int b = 0; b < T2_BT; ++b)
+      v[b] = b0 + b < B ? to_f<W>(x[(size_t)(b0 + b) * K + k]) : 0.0f;
+#pragma unroll
+    for (int b = 0; b < T2_BT; ++b) xs[k * T2_BT + b] = v[b];
+  }
+  __syncthreads();
+  gate_product<W, TP_COLS / 4, TP_THREADS>(
+      xs, K, w + (size_t)blockIdx.x * K * TP_COLS, red, gsm);
+  const int c0 = blockIdx.x * TP_COLS;
+  for (int i = threadIdx.x; i < T2_BT * TP_COLS; i += TP_THREADS) {
+    const int b = i / TP_COLS, c = i % TP_COLS;
+    if (b0 + b < B && c0 + c < ncols)
+      out[(size_t)(b0 + b) * ncols + c0 + c] = gsm[i];
+  }
+}
+
+// Set the dynamic shared memory of the backward kernels for products of
+// depth K; returns the first error.
+template <typename W>
+inline cudaError_t tile_product_prepare(int K) {
+  return cudaFuncSetAttribute(tile_product_kernel<W>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)tile_product_smem(K));
+}
+
 // dst[i] = src[i] in fp32 for i < count, by NT threads, T2_LOADS loads in
 // flight per thread (no barrier).
 template <typename W, int NT>

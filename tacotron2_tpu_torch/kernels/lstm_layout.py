@@ -7,7 +7,9 @@ those are four runs of ``units`` values per row, each half of a 32-byte
 sector whose other half belongs to the next block. The block-major layout
 stores each block's (K, 4*units) slab contiguously, column
 ``g*units + u`` holding gate g of the block's unit u, so every load a
-block makes is whole sectors of its own.
+block makes is whole sectors of its own. The backward kernels' products
+(rows @ a transposed weight) read plain column tiles the same way
+(``to_col_tiles``).
 """
 
 from __future__ import annotations
@@ -28,3 +30,17 @@ def from_blocks(wb: torch.Tensor) -> torch.Tensor:
     nb, K, C = wb.shape
     units = C // 4
     return wb.reshape(nb, K, 4, units).permute(1, 2, 0, 3).reshape(K, 4 * nb * units)
+
+
+TILE_COLS = 32  # TP_COLS of csrc/lstm_cell.cuh
+
+
+def to_col_tiles(w: torch.Tensor, cols: int = TILE_COLS) -> torch.Tensor:
+    """(K, N) row-major -> (ceil(N / cols), K, cols): each tile's columns
+    contiguous, zero columns past N. The backward kernels' products
+    (``tile_product_kernel``) read a block's tile as whole sectors."""
+    K, N = w.shape
+    nt = -(-N // cols)
+    w = torch.nn.functional.pad(w, (0, nt * cols - N))
+    return w.reshape(K, nt, cols).permute(1, 0, 2).contiguous()
+

@@ -8,9 +8,15 @@ package's ``models/tacotron2.py`` one by one, taking the module where JAX
 takes its params pytree; activations keep its channels-last ``(B, T, C)``
 layout and mel tensors are ``(B, T, n_mels)``.
 
-This slice is inference: batchnorm runs in eval mode on its running
-statistics, and dropout acts only in the prenet (reference model.py:99),
-from an explicit ``torch.Generator`` or from keep masks handed in.
+Serving (``infer``, ``infer_batch_fused``): batchnorm runs in eval mode on
+its running statistics, and dropout acts only in the prenet (reference
+model.py:99), from an explicit ``torch.Generator`` or from keep masks handed
+in. Training (``forward`` with ``training=True``, driven by
+``training/state.py``): batchnorm on batch statistics, returning the new
+running statistics as values; dropout in the encoder convs, prenet,
+both decoder LSTM outputs and the postnet, drawn from one
+``torch.Generator`` (none without it); the decoder core through
+``models/decoder_vjp.core_scan``.
 
 Fidelity notes (traps from the reference, all preserved):
 - the BiLSTM never reads padding (packed-sequence semantics, model.py:181);
@@ -23,7 +29,7 @@ Fidelity notes (traps from the reference, all preserved):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -31,9 +37,11 @@ from torch import nn
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.kernels import decoder_batch as db
 from tacotron2_tpu_torch.kernels import encoder_lstm
+from tacotron2_tpu_torch.kernels import train_scan
+from tacotron2_tpu_torch.models import decoder_vjp
 from tacotron2_tpu_torch.ops import initializers as init
-from tacotron2_tpu_torch.ops.layers import (batchnorm, conv1d, dense, dropout,
-                                            length_mask)
+from tacotron2_tpu_torch.ops.layers import (batchnorm, batchnorm_train, conv1d,
+                                            dense, dropout, length_mask)
 from tacotron2_tpu_torch.ops.lstm import (LSTMWeights, bilstm, lstm_cell,
                                           lstm_weights)
 
@@ -127,10 +135,13 @@ class Postnet(nn.Module):
 
 class Tacotron2(nn.Module):
     """The reference module tree; ``init_params`` draws the reference's
-    initialisation from a ``torch.Generator``."""
+    initialisation from a ``torch.Generator``. For serving (the default)
+    the parameters take no gradient; ``trainable=True`` leaves them
+    trainable, for ``training/state.py``."""
 
     def __init__(self, cfg: Tacotron2Config,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.embedding = nn.Embedding(cfg.n_symbols,
@@ -139,8 +150,8 @@ class Tacotron2(nn.Module):
         self.decoder = Decoder(cfg)
         self.postnet = Postnet(cfg)
         self.init_params(generator)
-        self.eval()
-        self.requires_grad_(False)  # inference slice: no autograd graph
+        self.eval()  # batchnorm mode is chosen per call, never by the module
+        self.requires_grad_(trainable)
 
     @torch.no_grad()  # the parameters require grad until __init__ ends
     def init_params(self, generator: Optional[torch.Generator] = None
@@ -203,13 +214,45 @@ def _b(layer: LinearNorm) -> Optional[torch.Tensor]:
     return layer.linear_layer.bias
 
 
-def _conv_bn_apply(seq: nn.Sequential, x: torch.Tensor,
+Stats = Dict[str, torch.Tensor]
+
+
+def bn_stats(model: Tacotron2) -> Stats:
+    """Copies of every batchnorm's running statistics, by state_dict name
+    (``...running_mean``/``...running_var``): the ``stats`` that the
+    training forms read and return as values."""
+    return {f"{name}.{k}": getattr(mod, k).detach().clone()
+            for name, mod in model.named_modules()
+            if isinstance(mod, nn.BatchNorm1d)
+            for k in ("running_mean", "running_var")}
+
+
+def _conv_bn_apply(seq: nn.Sequential, prefix: str, x: torch.Tensor,
+                   stats: Optional[Stats], new_stats: Stats, training: bool,
                    compute_dtype) -> torch.Tensor:
+    """conv -> batchnorm, on the running statistics (``stats`` by the
+    batchnorm's state_dict ``prefix``, the module's buffers when None) or,
+    in training, on the batch statistics, with the new running estimates
+    put into ``new_stats``; the result in the compute dtype."""
     conv, bn = seq[0].conv, seq[1]
     x = conv1d(x, conv.weight, conv.bias, compute_dtype)
-    x = batchnorm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                  bn.eps)
+    if stats is None:
+        mean, var = bn.running_mean, bn.running_var
+    else:
+        mean = stats[f"{prefix}.running_mean"]
+        var = stats[f"{prefix}.running_var"]
+    if training:
+        x, new_stats[f"{prefix}.running_mean"], \
+            new_stats[f"{prefix}.running_var"] = batchnorm_train(
+                x, mean, var, bn.weight, bn.bias, bn.momentum, bn.eps)
+    else:
+        x = batchnorm(x, mean, var, bn.weight, bn.bias, bn.eps)
     return x.to(compute_dtype) if compute_dtype is not None else x
+
+
+def _drop(x, generator, training: bool):
+    return dropout(x, 0.5, generator=generator,
+                   deterministic=not training or generator is None)
 
 
 # ======================================================================
@@ -230,19 +273,28 @@ def pack_encoder_lstm(model: Tacotron2, dtype: torch.dtype
 
 def encode(model: Tacotron2, text: torch.Tensor, text_lengths: torch.Tensor,
            cfg: Tacotron2Config, *, compute_dtype=None,
-           packed_lstm: Optional[encoder_lstm.PackedBiLSTM] = None
-           ) -> torch.Tensor:
+           packed_lstm: Optional[encoder_lstm.PackedBiLSTM] = None,
+           stats: Optional[Stats] = None, training: bool = False,
+           generator: Optional[torch.Generator] = None):
     """text (B, T_in) int -> encoder memory (B, T_in, e) fp32.
 
-    3x [conv5 -> batchnorm (eval) -> relu] then the length-aware BiLSTM
-    (reference Encoder, model.py:149-201); dropout is off at inference.
-    ``packed_lstm`` is ``pack_encoder_lstm(model, compute_dtype or
-    float32)``, packed here if omitted."""
+    3x [conv5 -> batchnorm -> relu -> dropout(0.5)] then the length-aware,
+    differentiable BiLSTM (reference Encoder, model.py:149-201; the JAX
+    package's ``encode``). Serving (the default): batchnorm on ``stats``
+    (the module's running statistics when None), no dropout; returns the
+    memory. ``training=True``: batchnorm on the batch statistics, dropout
+    from ``generator`` (none without one); returns (memory, the new running
+    statistics). ``packed_lstm`` is ``pack_encoder_lstm(model,
+    compute_dtype or float32)``, packed here if omitted."""
     x = model.embedding.weight[text.long()]
-    for seq in model.encoder.convolutions:
-        x = torch.relu(_conv_bn_apply(seq, x, compute_dtype))
-    return bilstm(*encoder_lstm_weights(model), x, text_lengths,
-                  compute_dtype=compute_dtype, packed=packed_lstm)
+    new_stats: Stats = {}
+    for i, seq in enumerate(model.encoder.convolutions):
+        x = _conv_bn_apply(seq, f"encoder.convolutions.{i}.1", x, stats,
+                           new_stats, training, compute_dtype)
+        x = _drop(torch.relu(x), generator, training)
+    memory = bilstm(*encoder_lstm_weights(model), x, text_lengths,
+                    compute_dtype=compute_dtype, packed=packed_lstm)
+    return (memory, new_stats) if training else memory
 
 
 # ======================================================================
@@ -337,14 +389,19 @@ def decoder_core(model: Tacotron2, state: DecoderState,
                  prenet_out: torch.Tensor, memory: torch.Tensor,
                  processed_memory: torch.Tensor,
                  mask: Optional[torch.Tensor], cfg: Tacotron2Config, *,
-                 compute_dtype=None) -> DecoderState:
+                 compute_dtype=None,
+                 keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> DecoderState:
     """The sequential part of one decoder frame (reference Decoder.decode,
     model.py:340-379 minus the heads): attention LSTM -> attention ->
-    decoder LSTM; the inference form, without the LSTM-output dropouts."""
+    decoder LSTM. ``keep`` holds the step's keep masks of the two
+    LSTM-output dropouts (training); None runs without them."""
     dec = model.decoder
-    cell_input = torch.cat([prenet_out, state.att_context], dim=-1)
+    cell_input = torch.cat([prenet_out.float(), state.att_context], dim=-1)
     att_h, att_c = lstm_cell(lstm_weights(dec.attention_rnn), cell_input,
                              (state.att_h, state.att_c), compute_dtype)
+    if keep is not None:
+        att_h = dropout(att_h, cfg.p_attention_dropout, keep=keep[0])
     att_context, att_weights = _attention(
         model, att_h, memory, processed_memory, state.att_weights,
         state.att_weights_cum, mask, compute_dtype)
@@ -352,6 +409,8 @@ def decoder_core(model: Tacotron2, state: DecoderState,
     dec_input = torch.cat([att_h, att_context], dim=-1)
     dec_h, dec_c = lstm_cell(lstm_weights(dec.decoder_rnn), dec_input,
                              (state.dec_h, state.dec_c), compute_dtype)
+    if keep is not None:
+        dec_h = dropout(dec_h, cfg.p_decoder_dropout, keep=keep[1])
     return DecoderState(att_h, att_c, dec_h, dec_c, att_weights,
                         att_weights_cum, att_context)
 
@@ -361,7 +420,7 @@ def decoder_head(model: Tacotron2, dec_h: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mel projection + stop gate (reference model.py:373-378)."""
     dec = model.decoder
-    x = torch.cat([dec_h, att_context], dim=-1)
+    x = torch.cat([dec_h.float(), att_context.float()], dim=-1)
     mel = dense(x, _w(dec.linear_projection), _b(dec.linear_projection),
                 compute_dtype)
     gate = dense(x, _w(dec.gate_layer), _b(dec.gate_layer),
@@ -505,16 +564,23 @@ def decode_chunk(model: Tacotron2, carry: StreamCarry, memory: torch.Tensor,
 # ======================================================================
 
 def postnet_apply(model: Tacotron2, mels: torch.Tensor, cfg: Tacotron2Config,
-                  *, compute_dtype=None) -> torch.Tensor:
-    """5x [conv5 -> batchnorm (eval) (-> tanh)] (reference Postnet,
-    model.py:103-146); returns the fp32 residual to add."""
+                  *, compute_dtype=None, stats: Optional[Stats] = None,
+                  training: bool = False,
+                  generator: Optional[torch.Generator] = None):
+    """5x [conv5 -> batchnorm (-> tanh) -> dropout(0.5)] (reference
+    Postnet, model.py:103-146; the JAX package's ``postnet_apply``);
+    returns the fp32 residual to add, or in training (residual, the new
+    running statistics). Batchnorm and dropout as in ``encode``."""
     x = mels
+    new_stats: Stats = {}
     convs = model.postnet.convolutions
     for i, seq in enumerate(convs):
-        x = _conv_bn_apply(seq, x, compute_dtype)
+        x = _conv_bn_apply(seq, f"postnet.convolutions.{i}.1", x, stats,
+                           new_stats, training, compute_dtype)
         if i < len(convs) - 1:
             x = torch.tanh(x)
-    return x.float()
+        x = _drop(x, generator, training)
+    return (x.float(), new_stats) if training else x.float()
 
 
 def mask_outputs(mel: torch.Tensor, mel_postnet: torch.Tensor,
@@ -608,3 +674,91 @@ def infer_batch_fused(model: Tacotron2, text: torch.Tensor,
         packed, memory, processed, mask, cfg, max_steps=max_steps,
         chunk_steps=chunk_steps, generator=generator)
     return _finish(model, mel, gate, align, lengths, cfg, compute_dtype)
+
+
+# ======================================================================
+# Training forms (teacher forcing)
+# ======================================================================
+
+def decode_teacher_forced(model: Tacotron2, memory: torch.Tensor,
+                          memory_lengths: torch.Tensor, mels: torch.Tensor,
+                          cfg: Tacotron2Config, *, training: bool,
+                          generator: Optional[torch.Generator] = None,
+                          compute_dtype=None,
+                          keep: Optional[train_scan.Keep] = None):
+    """Teacher-forced decoding (reference Decoder.forward, model.py:381-416)
+    with the reduction factor r: each step consumes the previous group of r
+    target frames (a zero group first) and emits one. mels (B, T_out,
+    n_mels). The prenet's dropout is on whenever there is a generator
+    (model.py:99); in training the two LSTM-output dropouts draw their keep
+    masks from it too, unless ``keep`` hands them in. Returns
+    (mel (B, T_out, n_mels), gate (B, T_out), align (B, T_out, T_in))."""
+    B, T_out, n_mels = mels.shape
+    r = cfg.n_frames_per_step
+    if T_out % r:
+        raise ValueError(f"T_out={T_out} not a multiple of "
+                         f"n_frames_per_step={r} (pad in the collate)")
+    steps = T_out // r
+    grouped = mels.reshape(B, steps, n_mels * r)
+    go = torch.zeros(B, 1, n_mels * r, dtype=mels.dtype, device=mels.device)
+    inputs = torch.cat([go, grouped[:, :-1]], dim=1)
+    prenet_out = prenet_apply(model, inputs, generator,
+                              compute_dtype=compute_dtype)
+    mask = length_mask(memory_lengths, memory.shape[1])
+    processed = processed_memory_of(model, memory, compute_dtype)
+    if not training:
+        keep = None
+    elif keep is None and generator is not None:
+        keep = train_scan.keep_masks(generator, steps, B,
+                                     cfg.attention_rnn_dim,
+                                     cfg.decoder_rnn_dim,
+                                     cfg.p_attention_dropout,
+                                     cfg.p_decoder_dropout)
+    dec_h, ctx, w = decoder_vjp.core_scan(
+        model, prenet_out.transpose(0, 1), memory, processed, mask, cfg,
+        keep=keep, compute_dtype=compute_dtype)
+    mel, gate = decoder_head(model, dec_h, ctx, compute_dtype)
+    mel = mel.transpose(0, 1).reshape(B, T_out, n_mels)
+    gate = gate.t().repeat_interleave(r, dim=1)
+    align = w.transpose(0, 1).repeat_interleave(r, dim=1)
+    return mel, gate, align
+
+
+class ForwardOutput(NamedTuple):
+    mel: torch.Tensor            # (B, T_out, n_mels)
+    mel_postnet: torch.Tensor    # (B, T_out, n_mels)
+    gate_energies: torch.Tensor  # (B, T_out)
+    alignments: torch.Tensor     # (B, T_out, T_in)
+
+
+def forward(model: Tacotron2, stats: Stats, text: torch.Tensor,
+            text_lengths: torch.Tensor, mels: torch.Tensor,
+            output_lengths: torch.Tensor, cfg: Tacotron2Config, *,
+            training: bool, generator: Optional[torch.Generator] = None,
+            compute_dtype=None, keep: Optional[train_scan.Keep] = None
+            ) -> Tuple[ForwardOutput, Stats]:
+    """Teacher-forced forward pass (reference Tacotron2.forward,
+    model.py:499-515; the JAX package's ``forward``). ``stats`` are the
+    batchnorm running statistics (``bn_stats``); the new ones come back as
+    values. ``generator=None`` runs no dropout anywhere (the JAX package's
+    ``rng=None``)."""
+    kw = dict(stats=stats, training=training, generator=generator,
+              compute_dtype=compute_dtype)
+    new_stats = dict(stats)
+
+    def run(fn, *args):  # the output, the new statistics kept
+        out = fn(model, *args, cfg, **kw)
+        if not training:
+            return out
+        new_stats.update(out[1])
+        return out[0]
+
+    memory = run(encode, text, text_lengths)
+    mel, gate, align = decode_teacher_forced(
+        model, memory, text_lengths, mels, cfg, training=training,
+        generator=generator, compute_dtype=compute_dtype, keep=keep)
+    mel_postnet = mel + run(postnet_apply, mel)
+    if cfg.mask_padding:
+        mel, mel_postnet, gate = mask_outputs(mel, mel_postnet, gate,
+                                              output_lengths)
+    return ForwardOutput(mel, mel_postnet, gate, align), new_stats

@@ -58,6 +58,28 @@ def batchnorm(x: torch.Tensor, running_mean: torch.Tensor,
     return y.to(x.dtype)
 
 
+def batchnorm_train(x: torch.Tensor, running_mean: torch.Tensor,
+                    running_var: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, momentum: float = 0.1,
+                    eps: float = 1e-5):
+    """Training-mode batchnorm over (B, T, C) (the JAX package's
+    ``batchnorm(training=True)``): normalise with the batch statistics over
+    (B, T) in fp32. Returns (y in x's dtype, new running mean, new running
+    var), the running estimates as values (momentum convention
+    new = (1-m)*old + m*batch, the unbiased variance going in), so that a
+    caller can still keep the old ones; nothing is updated in place."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 1))
+    var = (x32 - mean).square().mean(dim=(0, 1))
+    n = x.shape[0] * x.shape[1]
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = (1 - momentum) * running_var + momentum * unbiased
+    y = (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+    return y.to(x.dtype), new_mean, new_var
+
+
 def dropout(x: torch.Tensor, rate: float, *,
             generator: Optional[torch.Generator] = None,
             deterministic: bool = False,

@@ -8,8 +8,11 @@ Counterparts of the JAX package's ``ops/lstm.py``. Weights keep torch's
 model.py:181-188): the reverse direction scans a per-row length-reversed
 copy, so each row's backward state starts at its own last valid frame, and
 every output at t >= length is exactly 0. Both directions run through
-``kernels.encoder_lstm.bilstm_scans``: the hand-written CUDA kernel for a
-CUDA tensor, its plain version for a CPU tensor.
+``kernels.encoder_lstm.bilstm_scans``: the hand-written CUDA kernels for a
+CUDA tensor, their plain versions for a CPU tensor. It is differentiable:
+the scans through their autograd Function (the backward kernel), and the
+length reversal as a gather, whose backward is the scatter-add the JAX
+package's ``take_along_axis`` transposes to.
 """
 
 from __future__ import annotations
@@ -105,7 +108,8 @@ def bilstm(fwd: LSTMWeights, bwd: LSTMWeights, xs: torch.Tensor,
                                           compute_dtype or torch.float32)
     mask = length_mask(lengths, xs.shape[1])[:, :, None]
     xs_rev = _reverse_by_length(xs, lengths)
-    fwd_out, bwd_scan = encoder_lstm.bilstm_scans(packed, xs, xs_rev)
+    fwd_out, bwd_scan = encoder_lstm.bilstm_scans(packed, xs, xs_rev,
+                                                  (*fwd, *bwd))
     bwd_out = _reverse_by_length(bwd_scan, lengths)
     out = torch.cat([fwd_out, bwd_out], dim=-1)
     return torch.where(mask, out, torch.zeros_like(out))

@@ -82,9 +82,10 @@ def test_bilstm_scans_match_jax(inputs):
     fwd, bwd, xs, xsr, _ = inputs
     want = jel.bilstm_scans(fwd, bwd, jnp.asarray(xs), jnp.asarray(xsr),
                             JCFG)
-    packed = el.pack_bilstm(torch_weights(fwd), torch_weights(bwd),
-                            torch.bfloat16)
-    got = el.bilstm_scans(packed, torch.tensor(xs), torch.tensor(xsr))
+    wts = (torch_weights(fwd), torch_weights(bwd))
+    packed = el.pack_bilstm(*wts, torch.bfloat16)
+    got = el.bilstm_scans(packed, torch.tensor(xs), torch.tensor(xsr),
+                          tuple(x for w in wts for x in w))
     for g, w in zip(got, want):
         close(g, w)
 
@@ -108,9 +109,73 @@ def test_plain_version_counts_calls(inputs):
     fwd, bwd, xs, xsr, _ = inputs
     plain0 = el.bilstm_forward_plain.calls
     launches0 = el.bilstm_forward.launches
-    packed = el.pack_bilstm(torch_weights(fwd), torch_weights(bwd),
-                            torch.float32)
+    wts = (torch_weights(fwd), torch_weights(bwd))
+    packed = el.pack_bilstm(*wts, torch.float32)
     el.bilstm_scans(packed, torch.tensor(xs[:2, :3]),
-                    torch.tensor(xsr[:2, :3]))
+                    torch.tensor(xsr[:2, :3]),
+                    tuple(x for w in wts for x in w))
     assert el.bilstm_forward_plain.calls == plain0 + 1
     assert el.bilstm_forward.launches == launches0
+
+
+def test_backward_plain_matches_jax_kernel(inputs):
+    """Row 4: the backward chain's four stacks (dgates bf16, dx fp32) of
+    both directions against ``_bwd_call`` at bf16, from the same forward
+    stacks and cotangents. Largest |err| as a share of each stack's largest
+    |value| within 2e-2 (bf16 rounding flips of dgates carried back)."""
+    fwd, bwd, xs, xsr, _ = inputs
+    wf, bf = jel._pack_dir(fwd, jnp.bfloat16)
+    wb, bb = jel._pack_dir(bwd, jnp.bfloat16)
+    dims = jel._Dims(b=B, n=E, h=H)
+    gf, gb, hf, hb, cf, cb = jel._fwd_call(
+        wf, bf, wb, bb, jnp.asarray(xs).swapaxes(0, 1),
+        jnp.asarray(xsr).swapaxes(0, 1), dims=dims, interpret=True)
+    rng = np.random.RandomState(4)
+    dhf, dhb = ((rng.randn(T, B, H) * 0.1).astype(np.float32)
+                for _ in range(2))
+    want = jel._bwd_call(wf.T, wb.T, gf, gb, cf, cb, jnp.asarray(dhf),
+                         jnp.asarray(dhb), dims=dims, interpret=True)
+    t = lambda x, dt=torch.float32: torch.tensor(np.asarray(x, np.float32)
+                                                 ).to(dt)
+    got = el.bilstm_backward(
+        t(wf.T, torch.bfloat16), t(wb.T, torch.bfloat16),
+        t(gf, torch.bfloat16), t(gb, torch.bfloat16), t(cf), t(cb), t(dhf),
+        t(dhb))
+    for name, g, w in zip(("dgf", "dgb", "dxf", "dxb"), got, want):
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), name
+        w = np.asarray(w, np.float32)
+        err = np.abs(g.float().numpy() - w).max() / np.abs(w).max()
+        assert err <= 2e-2, (name, err)
+
+
+def test_bilstm_grads_match_jax_vjp(inputs):
+    """``ops.lstm.bilstm`` under autograd (the Function around the
+    backward chain, and the gather's scatter-add) against ``jax.vjp`` of
+    the JAX ``bilstm`` at fp32 with ragged lengths: the input's and every
+    weight's gradient within 1e-4 of its largest value, and exactly zero
+    gradient at the positions past each row's length."""
+    fwd, bwd, xs, _, lengths = inputs
+    rng = np.random.RandomState(5)
+    cot = (rng.randn(B, T, 2 * H) * 0.1).astype(np.float32)
+    out, vjp = jax.vjp(lambda f, b, x: jlstm.bilstm(f, b, x,
+                                                    jnp.asarray(lengths)),
+                       fwd, bwd, jnp.asarray(xs))
+    dfwd, dbwd, dxs = vjp(jnp.asarray(cot))
+    wts = [torch_weights(p) for p in (fwd, bwd)]
+    leaves = [x.clone().requires_grad_(True) for w in wts for x in w]
+    x = torch.tensor(xs, requires_grad=True)
+    got = tlstm.bilstm(tlstm.LSTMWeights(*leaves[:4]),
+                       tlstm.LSTMWeights(*leaves[4:]), x,
+                       torch.tensor(lengths))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=1e-5)
+    (got * torch.tensor(cot)).sum().backward()
+    want = [np.asarray(d[k], np.float32).T if k[0] == "w"
+            else np.asarray(d[k], np.float32)
+            for d in (dfwd, dbwd) for k in ("wi", "wh", "bi", "bh")]
+    for name, g, w in zip(["wi", "wh", "bi", "bh"] * 2 + ["xs"],
+                          [p.grad for p in leaves] + [x.grad],
+                          want + [np.asarray(dxs)]):
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= 1e-4, (name, err)
+    assert torch.all(x.grad[B // 2:, T - 3:] == 0.0)

@@ -180,3 +180,144 @@ def test_encoder_kernel_rejects_cpu_weights(cuda):
     b = torch.zeros(512)
     with pytest.raises(ValueError):
         el.bilstm_forward(w, b, w, b, xs, xs)
+
+
+# ------------------------------------------------------------ training slice
+
+from tacotron2_tpu_torch.kernels import train_scan as ts  # noqa: E402
+from tacotron2_tpu_torch.models import decoder_vjp as dv  # noqa: E402
+
+# Scan kernels against their plain versions: the largest |err| of each
+# stack as a share of its largest |value| (same table in chip_smoke.py).
+SCAN_REL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+ENC_BWD_REL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+
+
+def rel_errs(got, want, names):
+    out = {}
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        out[name] = err / scale if scale > 0 else err
+    return out
+
+
+def scan_case(device, dtype, B, T_in, steps, dropout, seed=0):
+    """(sw, prenet, mem, proc, emask, keep, kw) at CFG's widths, ks 31."""
+    model = tm.Tacotron2(CFG, torch.Generator().manual_seed(seed)).to(device)
+    sw = dv._pack(dv.core_weights(model), dtype)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    rand = lambda *s: torch.randn(*s, generator=g, device=device) * 0.3
+    lengths = torch.randint(T_in // 2, T_in + 1, (B,), generator=g,
+                            device=device)
+    lengths[0] = T_in
+    mask = torch.arange(T_in, device=device)[None] < lengths[:, None]
+    mem, proc, emask = db.attention_inputs(rand(B, T_in, 128),
+                                           rand(B, T_in, 128), mask, dtype)
+    prenet = rand(steps, B, 128).to(dtype)
+    keep = (ts.keep_masks(g, steps, B, 128, 128, 0.1, 0.1) if dropout
+            else None)
+    return sw, prenet, mem, proc, emask, dict(keep=keep, p_att=0.1,
+                                              p_dec=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T_in,dropout", [(8, 37, False), (13, 20, True)])
+def test_scan_forward_kernel_matches_plain(cuda, dtype, B, T_in, dropout):
+    """Row 1: all eight residual stacks over 6 steps (B=13: a ragged row
+    tile; T_in=37: not a multiple of the energy tile)."""
+    sw, pre, mem, proc, emask, kw = scan_case(cuda, dtype, B, T_in, 6,
+                                              dropout)
+    got = ts.forward_residuals(sw, pre, mem, proc, emask, **kw)
+    want = ts.forward_residuals_plain(sw, pre, mem, proc, emask, **kw)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, ts.Residuals._fields)
+    assert max(errs.values()) <= SCAN_REL[dtype], errs
+
+
+def _bwd_case(cuda, dtype, B, T_in, dropout):
+    sw, pre, mem, proc, emask, kw = scan_case(cuda, dtype, B, T_in, 6,
+                                              dropout)
+    res = ts.forward_residuals_plain(sw, pre, mem, proc, emask, **kw)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cot = lambda x: torch.randn(x.shape, generator=g, device=cuda) * 0.1
+    return sw, res, mem, proc, (cot(res.dec_h), cot(res.ctx),
+                                cot(res.w) * (emask == 0)), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T_in,dropout", [(8, 37, False), (13, 20, True)])
+def test_scan_backward_kernel_matches_plain(cuda, dtype, B, T_in, dropout):
+    """Row 2: every output, d_processed, d_K2 and d_v included, from the
+    same residuals and cotangents."""
+    sw, res, mem, proc, cots, kw = _bwd_case(cuda, dtype, B, T_in, dropout)
+    got = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
+    want = ts.backward_chain_plain(sw, res, mem, proc, *cots, **kw)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, ts.ChainGrads._fields)
+    assert max(errs.values()) <= SCAN_REL[dtype], errs
+
+
+@pytest.mark.gpu
+def test_scan_backward_accumulators_are_deterministic(cuda):
+    """Two runs of the backward kernel give the same bits of d_K2, d_v and
+    d_processed (fixed-order sums, no atomics)."""
+    sw, res, mem, proc, cots, kw = _bwd_case(cuda, torch.bfloat16, 13, 20,
+                                             True)
+    a = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
+    b = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
+    for name in ("d_k2", "d_v", "d_processed"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T", [(8, 20), (13, 7)])
+def test_encoder_backward_kernel_matches_plain(cuda, dtype, B, T):
+    """Row 4: dgates and dx of both directions."""
+    N, H = 256, 128
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rand = lambda *s: (torch.rand(*s, generator=g, device=cuda) - 0.5)
+    wf, wb = (to_blocks(rand(N + H, 4 * H).mul(0.2).to(dtype), 4)
+              for _ in range(2))
+    bf, bb = (rand(4 * H).mul(0.2) for _ in range(2))
+    xs, xsr = (rand(B, T, N).to(dtype) for _ in range(2))
+    gf, gb, _, _, cf, cb = el.bilstm_forward_plain(wf, bf, wb, bb, xs, xsr)
+    from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks
+    wtf, wtb = (from_blocks(w).t().contiguous() for w in (wf, wb))
+    dhf, dhb = (rand(T, B, H) for _ in range(2))
+    args = (wtf, wtb, gf, gb, cf, cb, dhf, dhb)
+    got = el.bilstm_backward(*args)
+    want = el.bilstm_backward_plain(*args)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, ("dgf", "dgb", "dxf", "dxb"))
+    assert max(errs.values()) <= ENC_BWD_REL[dtype], errs
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One fp32 training step of CFG's model on the card (all four kernels)
+    against the same step on the CPU (their plain versions): the loss to
+    1e-5 and every parameter gradient within 1e-4 of its largest value
+    (1e-3 of 1e-3 for gradients that are zero up to rounding)."""
+    from tacotron2_tpu_torch.training import state as st
+    counts = (el.bilstm_forward.launches, el.bilstm_backward.launches,
+              ts.forward_residuals.launches, ts.backward_chain.launches)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = st.create_train_state(
+            CFG, generator=torch.Generator().manual_seed(3), device=dev)
+        batch = st.make_batch(CFG, 8, 24, 12, seed=1, device=dev)
+        out[dev.type] = st.loss_and_grads(state, batch, CFG)
+    after = (el.bilstm_forward.launches, el.bilstm_backward.launches,
+             ts.forward_residuals.launches, ts.backward_chain.launches)
+    assert all(a == c + 1 for a, c in zip(after, counts)), (counts, after)
+    (lg, gg, _, _), (lc, gc, _, _) = out["cuda"], out["cpu"]
+    assert abs(float(lg.total) - float(lc.total)) <= 1e-5 * abs(float(lc.total))
+    for k in gc:
+        scale = max(float(gc[k].abs().max()), 1e-3)
+        err = float((gg[k].cpu() - gc[k]).abs().max())
+        assert err <= 1e-4 * scale, (k, err / scale)
