@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's batched serving path and its training step on one CUDA
-card and check them.
+"""Drive the port's serving paths and its training step on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -22,15 +22,32 @@ on failure:
    buckets (bf16, max_steps=200); both kernels' launch counts must rise
    and the plain versions must not run. Then a short fp32 run
    (max_steps=32) against the plain path on the CPU;
-6. the training kernels at bench.py's shape (B=128, T_in=128, bf16): the
+6. the three kernels of one utterance against their plain versions at full
+   width: the single-utterance decoder chunk (B=1; T_in 64, 128, 192; with
+   and without keep masks; chunks of 32 and 64; bf16 and fp32) field by
+   field (STEP_REL) with perturbed attention rejected, timed beside the
+   batched chunk's entry called at B=1; the int8 product at the two decoder
+   cells' shapes (B=1 and 8, and ragged shapes), timed beside
+   ``torch.matmul`` on a bf16 copy dequantised ahead of time; the fused mel
+   kernel on 16 waveforms of 6 s (and ragged lengths), timed beside the two
+   ``torch.matmul`` form;
+7. one utterance to audio: ``infer.synthesize([text], fused=True)`` with the
+   full V1 HiFi-GAN generator and with Griffin-Lim (max_steps=200), the same
+   text on ``quantize_for_serving`` weights through the step-by-step decoder,
+   ``StreamingSynthesizer(chunk_steps=32).stream(text)`` held against the
+   offline result, and the front end on 16 waveforms of 6 s; each path's
+   launch counts must show its kernel and no plain version may run on the
+   card; a breakdown by stage, a profile, and an fp32 ``infer_fused`` on the
+   card against the CPU plain path;
+8. the training kernels at bench.py's shape (B=128, T_in=128, bf16): the
    decoder forward scan and backward chain against their plain versions
    over 64 and 512 steps, the encoder BiLSTM forward and backward at B=128,
    each field within its limit and perturbed outputs rejected;
-7. training: ``train_step`` at B=128, T_in=128, T_out=512, bf16 (one warm
+9. training: ``train_step`` at B=128, T_in=128, T_out=512, bf16 (one warm
    step, three timed): every training kernel must launch and no plain
    version run; a breakdown by stage and a profile of one step;
-8. one fp32 training step on the card against the CPU plain versions, then
-   with cuDNN's convolutions, and each convolution against fp64.
+10. one fp32 training step on the card against the CPU plain versions, then
+    with cuDNN's convolutions, and each convolution against fp64.
 
 The second-to-last line is the ``kernels`` JSON object (times, bounds,
 launches, errors); the last is the device line.
@@ -39,6 +56,7 @@ launches, errors); the last is the device line.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import subprocess
 import sys
@@ -47,19 +65,28 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from tacotron2_tpu_torch import infer as tinfer
+from tacotron2_tpu_torch.audio import mel as tmel
 from tacotron2_tpu_torch.config import create_config
 from tacotron2_tpu_torch.data.bucketing import text_bucket
 from tacotron2_tpu_torch.kernels import _build
 from tacotron2_tpu_torch.kernels import decoder_batch as db
+from tacotron2_tpu_torch.kernels import decoder_step as ds
 from tacotron2_tpu_torch.kernels import encoder_lstm as el
+from tacotron2_tpu_torch.kernels import mel_kernel as mk
 from tacotron2_tpu_torch.kernels import train_scan as ts
 from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks
 from tacotron2_tpu_torch.models import decoder_vjp as dv
+from tacotron2_tpu_torch.models import hifigan
 from tacotron2_tpu_torch.models import tacotron2 as tm
 from tacotron2_tpu_torch.ops.lstm import _reverse_by_length, lstm_weights
 from tacotron2_tpu_torch.serve import BatchingSynthesizer
+from tacotron2_tpu_torch.streaming import StreamingSynthesizer
 from tacotron2_tpu_torch.text import text_to_sequence
 from tacotron2_tpu_torch.training import state as tstate
+
+# the package exports a function ``int8_matmul`` that hides the module
+i8 = importlib.import_module("tacotron2_tpu_torch.kernels.int8_matmul")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is max(bytes / HBM rate, FLOPs / peak for its operand type).
@@ -326,9 +353,11 @@ def _check_catches(got, want, limits):
                  f"({what})")
 
 
-def _decoder_work(fp, B, T, cs, keep, n_filters):
+def _decoder_work(fp, B, T, cs, keep, n_filters, att_size=None):
     """Bytes one chunk call must move (each input read once, each output
-    written once) and the FLOPs of its products (2 per multiply-add)."""
+    written once) and the FLOPs of its products (2 per multiply-add).
+    ``att_size`` is the element size of memory and processed memory (the
+    weights' unless given)."""
     n, p = fp.pre1.shape
     nb1, k1, cols = fp.w1.shape            # block-major LSTM weights
     nb2, k2, _ = fp.w2.shape
@@ -338,7 +367,7 @@ def _decoder_work(fp, B, T, cs, keep, n_filters):
     e = k2 - a - d
     size = lambda x: x.numel() * x.element_size()
     nbytes = sum(size(x) for x in fp)
-    wsz = fp.w1.element_size()
+    wsz = att_size or fp.w1.element_size()
     nbytes += B * T * (e + datt) * wsz + B * T * 4          # mem, proc, mask
     nbytes += 2 * 4 * B * (2 * a + 2 * d + e + n + 2 * T + 2)  # carry in+out
     nbytes += 4 * cs * B * (n + 1 + T)                     # mel, gate, align
@@ -508,6 +537,500 @@ def fp32_phase(cfg, dev, card, seed):
     print(f"fp32 serving [{card}] 8 requests, 32 steps: kernels on the card "
           f"against the plain path on the CPU, max |err| {err:.3e} (atol "
           f"{SERVE_TOL_FP32[0]}, rtol {SERVE_TOL_FP32[1]})")
+
+
+# ------------------------------------------------- one utterance to audio
+
+# Single-utterance decoder chunk, kernel against its plain version: as
+# DEC_REL, each field's largest |err| as a share of its largest |value|,
+# limits about ten times the worst reading on the card over this script's
+# chunks and those of tests/test_torch_kernels_gpu.py (the same table).
+STEP_REL = {
+    torch.bfloat16: dict(mel=1e-2, gate=3e-1, align=2e-2, h1=1e-2, c1=1e-2,
+                         h2=5e-3, c2=5e-3, w=2e-2, wc=2e-3, ctx=3e-3,
+                         prev=1e-2),
+    torch.float32: dict(mel=2e-5, gate=2e-4, align=2e-5, h1=1e-5, c1=1e-5,
+                        h2=1e-5, c2=1e-5, w=2e-5, wc=1e-5, ctx=2e-5,
+                        prev=2e-5),
+}
+# int8 product: bf16 x int8 products are exact in fp32, the sums run in
+# another order: largest |err| as a share of the output's largest |value|
+# (worst reading on an NVIDIA H100 80GB HBM3 at 700 W: 2.2e-7).
+INT8_REL = 1e-5
+# Mel kernel against its plain version, in the log domain: the sums of 1024
+# and 513 fp32 terms run in another order, and the log turns the relative
+# error of a value near the 1e-5 floor into an absolute one (worst reading
+# on an NVIDIA H100 80GB HBM3 at 700 W: 9.5e-7).
+MEL_LOG_ATOL = 1e-4
+# Streamed against offline, bf16: the same function of the same inputs
+# through windows; a conv's sum that differs in its last bit can round a
+# bf16 operand the other way (2^-8 of it). Share of the largest |value|.
+STREAM_REL_BF16 = 2e-2
+UTTERANCE = LONG_TEXTS[1]   # 128-symbol bucket
+UTTERANCE_STEPS = 200
+
+
+def step_phase(model, cfg, dev, card):
+    """Row 6 at full width, B=1: every shape class against the plain
+    version; timed at T_in=128, one 64-step chunk, beside the batched
+    chunk's entry (row 5) called at B=1 on the same inputs."""
+    n = cfg.n_mel_channels * cfg.n_frames_per_step
+    a, d, e = (cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
+               cfg.encoder_embedding_dim)
+    cases = [(torch.bfloat16, T, cs, keep) for T in (64, 128, 192)
+             for cs in (32, 64) for keep in (False, True)]
+    cases += [(torch.float32, 128, 64, False), (torch.float32, 192, 32, True)]
+    worst, timed = {}, {}
+    for dtype, T, cs, keep in cases:
+        limits = STEP_REL[dtype]
+        label = (f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} T_in={T} "
+                 f"chunk={cs}{' keep' if keep else ''}")
+        cd = None if dtype == torch.float32 else dtype
+        g = torch.Generator(device=dev).manual_seed(31 + T + cs)
+        text = torch.randint(1, cfg.n_symbols, (1, T), generator=g,
+                             device=dev)
+        lengths = torch.tensor([T - 9], device=dev)
+        memory = tm.encode(model, text, lengths, cfg, compute_dtype=cd)
+        processed = tm.processed_memory_of(model, memory, cd)
+        mask = torch.arange(T, device=dev)[None] < lengths[:, None]
+        fp = ds.pack_decoder_params(model, dtype)
+        inputs = ds.attention_inputs(memory, processed, mask)
+        z = lambda *s: torch.zeros(*s, device=dev)
+        i32 = lambda: torch.zeros(1, dtype=torch.int32, device=dev)
+        carry = db.ChunkCarry(z(1, a), z(1, a), z(1, d), z(1, d), z(1, T),
+                              z(1, T), z(1, e), z(1, n), i32(), i32())
+        kp = (None, None)
+        if keep:
+            kp = tuple((torch.rand(cs, 1, cfg.prenet_dim, generator=g,
+                                   device=dev) < 0.5).float()
+                       for _ in range(2))
+        kw = dict(t0=0, chunk_steps=cs, gate_logit=db.gate_logit_threshold(
+            cfg), kp1=kp[0], kp2=kp[1])
+        args = (fp, carry, *inputs)
+        got = ds.decoder_step_chunk(*args, **kw)
+        want = ds.decoder_step_chunk_plain(*args, **kw)
+        torch.cuda.synchronize()
+        fields = {name: field_err(x, y)
+                  for name, x, y in _chunk_fields(got, want)}
+        for name, (err, r) in fields.items():
+            if r > limits[name]:
+                fail(f"single-utterance decoder kernel ({label}) disagrees "
+                     f"with its plain version on {name}: max |err| {err}, "
+                     f"{r:.3e} of the field's largest value, beyond "
+                     f"{limits[name]}")
+            key = (dtype, name)
+            worst[key] = max(worst.get(key, (0.0, 0.0)), (r, err))
+        for name in ("fin", "lens"):
+            if not torch.equal(getattr(got.carry, name),
+                               getattr(want.carry, name)):
+                fail(f"single-utterance decoder kernel ({label}): {name} "
+                     f"differs from the plain version")
+        if (dtype, T, cs, keep) == (torch.bfloat16, 128, 64, False):
+            _check_catches(got, want, limits)
+        if (T, cs, keep) == (128, 64, False):
+            ms = cuda_ms(lambda: ds.decoder_step_chunk(*args, **kw), iters=5)
+            plain_ms = cuda_ms(lambda: ds.decoder_step_chunk_plain(
+                *args, **kw), iters=2, warmup=1)
+            fpb = db.pack_batch_decoder_params(model, dtype)
+            inb = db.attention_inputs(memory, processed, mask, dtype)
+            batched_ms = cuda_ms(lambda: db.decoder_chunk(
+                fpb, carry, *inb, **kw), iters=5)
+            nbytes, flops = _decoder_work(
+                fp, 1, T, cs, False, cfg.attention_location_n_filters,
+                att_size=4)
+            bound_ms, bound_by = bound(nbytes, flops, "float32" if dtype ==
+                                       torch.float32 else "bfloat16")
+            timed[dtype] = dict(ms=ms, plain_ms=plain_ms,
+                                batched_entry_at_b1_ms=batched_ms,
+                                bound_ms=bound_ms, bound_by=bound_by)
+            print(f"decoder step [{card}] {label} B=1: kernel {ms:.4f} ms "
+                  f"({ms / cs * 1e3:.2f} us a step), plain {plain_ms:.4f} ms,"
+                  f" the batched chunk's entry at B=1 {batched_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({bound_by})")
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"decoder step [{card}] "
+              f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}, worst over "
+              f"{sum(c[0] == dtype for c in cases)} shape classes: max |err| "
+              f"by field, as a share of the field's largest |value| (limit): "
+              + ", ".join(f"{k} {worst[(dtype, k)][0]:.2e} "
+                          f"({STEP_REL[dtype][k]})" for k in DEC_FIELDS))
+    r = timed[torch.bfloat16]
+    return {"name": "decoder_step_chunk", "route": "cuda",
+            "source": "tacotron2_tpu_torch/kernels/csrc/decoder_step.cu",
+            "replaces": "tacotron2_tpu/kernels/decoder_step.py:198",
+            "max_abs_err": max(v[1] for (dt, _), v in worst.items()
+                               if dt == torch.bfloat16),
+            "tolerance": {"share_of_field_max": STEP_REL[torch.bfloat16]},
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "batched_entry_at_b1_ms": r["batched_entry_at_b1_ms"],
+            "fp32": timed[torch.float32]}
+
+
+def int8_phase(dev, card):
+    """Row 7 at the two decoder cells' shapes (attention LSTM K=1792,
+    decoder LSTM K=2560; N=4096) at B=1 and B=8, and ragged shapes."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    out = {}
+    for B, K, N in ((1, 1792, 4096), (1, 2560, 4096), (8, 1792, 4096),
+                    (8, 2560, 4096), (3, 100, 83), (19, 257, 40), (2, 33, 7)):
+        x = torch.randn(B, K, generator=g, device=dev)
+        w = torch.randn(K, N, generator=g, device=dev) * 0.05
+        w_q, scale = (t.to(dev) for t in i8.quantize_int8(w))
+        got = i8.int8_matmul(x, w_q, scale)
+        want = i8.int8_matmul_plain(x, w_q, scale)
+        torch.cuda.synchronize()
+        err, rel = field_err(got, want)
+        if rel > INT8_REL:
+            fail(f"int8 kernel B={B} K={K} N={N}: max |err| {err}, "
+                 f"{rel:.3e} of the largest value, beyond {INT8_REL}")
+        bad = got.clone()
+        bad[:, N // 2] *= 1.05
+        if field_err(bad, want)[1] <= INT8_REL:
+            fail("the int8 comparison passes a column scaled by 1.05")
+        if N != 4096:
+            print(f"int8 [{card}] B={B} K={K} N={N}: max |err| {err:.3e} "
+                  f"({rel:.2e} of the largest value, limit {INT8_REL})")
+            continue
+        ms = cuda_ms(lambda: i8.int8_matmul(x, w_q, scale), iters=50)
+        plain_ms = cuda_ms(lambda: i8.int8_matmul_plain(x, w_q, scale),
+                           iters=20)
+        # one library call on the same inputs: a bf16 matmul against a copy
+        # dequantised ahead of time (twice the weight bytes; the scale
+        # folded into the copy, so not the kernel's rounding)
+        xb = x.to(torch.bfloat16)
+        wb = (w_q.float() * scale).to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: torch.matmul(xb, wb), iters=50)
+        # the C entry point alone, on the wrapper's own arguments: a wrapper
+        # call's time at these sizes is the host's, not the kernel's
+        lib = _build.load("int8_matmul", i8._SIGNATURES)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernel_us = 1e3 * cuda_ms(lambda: lib.int8_matmul(
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), got.data_ptr(),
+            B, K, N, stream), iters=200)
+        nbytes = K * N + 4 * (B * K + N + B * N)
+        bound_ms, bound_by = bound(nbytes, 2.0 * B * K * N, "bfloat16")
+        print(f"int8 [{card}] B={B} K={K} N={N}: max |err| {err:.3e} "
+              f"({rel:.2e} of the largest value, limit {INT8_REL}); wrapper "
+              f"call {ms:.4f} ms (the C entry point alone {kernel_us:.2f} us), "
+              f"plain {plain_ms:.4f} ms, torch.matmul on a "
+              f"dequantised bf16 copy {library_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by})")
+        out[(B, K)] = dict(max_abs_err=err, ms=ms, kernel_only_ms=kernel_us
+                           / 1e3, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+    r = out[(1, 2560)]
+    shapes = {f"B={B} K={K} N=4096": v for (B, K), v in out.items()}
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "tacotron2_tpu_torch/kernels/csrc/int8_matmul.cu",
+            "replaces": "tacotron2_tpu/kernels/int8_matmul.py:45",
+            "max_abs_err": max(v["max_abs_err"] for v in out.values()),
+            "tolerance": {"share_of_largest_value": INT8_REL},
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library": "torch.matmul on a bf16 copy dequantised ahead of "
+                       "time", "timed_at": "B=1 K=2560 N=4096",
+            "shapes": shapes}
+
+
+def _waveforms(dev, B, S, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y = (torch.rand(B, S, generator=g, device=dev) * 2 - 1) * 0.3
+    y[0] *= 1e-4   # a quiet row: most of its mels near the 1e-5 floor
+    return y
+
+
+def mel_phase(cfg, dev, card):
+    """Row 8: 16 waveforms of 6 s at the default front end (n_fft 1024, hop
+    256, 80 mels), and ragged lengths, against the plain version."""
+    mc = tmel.MelConfig.from_config(cfg)
+    res = None
+    for B, S in ((16, 6 * cfg.sampling_rate), (3, 10000), (1, 700)):
+        y = _waveforms(dev, B, S, 51)
+        got = mk.mel_spectrogram_fused(y, mc)
+        want = mk.mel_spectrogram_fused_plain(y, mc)
+        torch.cuda.synchronize()
+        T = 1 + S // mc.hop_length
+        if tuple(got.shape) != (B, mc.n_mel_channels, T):
+            fail(f"mel kernel: shape {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        if err > MEL_LOG_ATOL:
+            fail(f"mel kernel B={B} samples={S}: max |err| {err} in the log "
+                 f"domain, beyond {MEL_LOG_ATOL}")
+        if float((torch.roll(got, 1, dims=2) - want).abs().max()) \
+                <= MEL_LOG_ATOL:
+            fail("the mel comparison passes frames shifted by one")
+        if B != 16:
+            print(f"mel [{card}] B={B} samples={S} ({T} frames): max |err| "
+                  f"{err:.3e} in the log domain (limit {MEL_LOG_ATOL})")
+            continue
+        ms = cuda_ms(lambda: mk.mel_spectrogram_fused(y, mc), iters=10)
+        plain_ms = cuda_ms(lambda: mk.mel_spectrogram_fused_plain(y, mc),
+                           iters=10)
+        library_ms = cuda_ms(lambda: tmel.mel_spectrogram(y, mc), iters=10)
+        n_fft, n_bins, n_mels = (mc.filter_length, mc.stft.n_bins,
+                                 mc.n_mel_channels)
+        nbytes = 4 * (B * S + 2 * n_fft * n_bins + n_bins * n_mels
+                      + B * n_mels * T)
+        flops = 2.0 * B * T * (2 * n_fft * n_bins + n_bins * n_mels)
+        bound_ms, bound_by = bound(nbytes, flops, "float32")
+        print(f"mel [{card}] B={B} samples={S} ({T} frames) fp32: max |err| "
+              f"{err:.3e} in the log domain (limit {MEL_LOG_ATOL}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, audio.mel."
+              f"mel_spectrogram (two torch.matmul) {library_ms:.4f} ms, bound"
+              f" {bound_ms:.5f} ms ({bound_by})")
+        res = {"name": "mel_spectrogram_fused", "route": "cuda",
+               "source": "tacotron2_tpu_torch/kernels/csrc/mel_kernel.cu",
+               "replaces": "tacotron2_tpu/kernels/mel_kernel.py:34",
+               "max_abs_err": err,
+               "tolerance": {"log_domain_atol": MEL_LOG_ATOL},
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms,
+               "library": "audio.mel.mel_spectrogram (two torch.matmul)"}
+    return res
+
+
+UTTERANCE_KERNELS = {"encoder_lstm_fwd": el.bilstm_forward,
+                     "decoder_step_chunk": ds.decoder_step_chunk,
+                     "int8_matmul": i8.int8_matmul,
+                     "mel_spectrogram_fused": mk.mel_spectrogram_fused}
+UTTERANCE_PLAIN = (el.bilstm_forward_plain, db.decoder_chunk_plain,
+                   ds.decoder_step_chunk_plain, i8.int8_matmul_plain,
+                   mk.mel_spectrogram_fused_plain)
+
+
+def _counted(what, run, must_launch):
+    """run() with every launch count of the path set to 0 just before and
+    read just after: the kernels in ``must_launch`` must have launched, and
+    no plain version may have run. Returns (run's result, the counts)."""
+    for fn in UTTERANCE_KERNELS.values():
+        fn.launches = 0
+    plain0 = sum(f.calls for f in UTTERANCE_PLAIN)
+    out = run()
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in UTTERANCE_KERNELS.items()}
+    plain = sum(f.calls for f in UTTERANCE_PLAIN) - plain0
+    for name in must_launch:
+        if counts[name] == 0:
+            fail(f"{what} never launched the {name} kernel")
+    if plain:
+        fail(f"{what} ran a plain version {plain} times on the card")
+    return out, counts
+
+
+def _timed(run):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _check_result(what, res, cfg, steps, audio=True):
+    n = res.mel.shape[0]
+    if not 0 < n <= steps * cfg.n_frames_per_step \
+            or res.mel.shape[1] != cfg.n_mel_channels:
+        fail(f"{what}: mel {res.mel.shape}")
+    arrays = [res.mel, res.alignment, res.gate]
+    if audio:
+        if res.audio is None or not (n - 1) * cfg.hop_length \
+                <= res.audio.shape[0] <= n * cfg.hop_length:
+            fail(f"{what}: {n} frames but audio "
+                 f"{None if res.audio is None else res.audio.shape}")
+        arrays.append(res.audio)
+    for a in arrays:
+        if not torch.isfinite(torch.from_numpy(a)).all():
+            fail(f"{what}: non-finite output")
+
+
+def utterance_phase(cfg, dev, card, seed):
+    """One utterance to audio at the default config (bf16, seeded random
+    weights, full V1 HiFi-GAN generator): offline through the fused
+    decoder with HiFi-GAN and with Griffin-Lim, the int8 weights through
+    the step-by-step decoder, streamed with HiFi-GAN, and the front end.
+    Random weights never fire the gate: every decode runs to the cap."""
+    steps = UTTERANCE_STEPS
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    hg = hifigan.HiFiGANConfig(n_mel_channels=cfg.n_mel_channels)
+    voc = hifigan.Generator(hg, torch.Generator().manual_seed(seed + 1)
+                            ).to(dev)
+    counts = {}
+    synth = lambda m, **kw: tinfer.synthesize(
+        m, [UTTERANCE], cfg, max_steps=steps, vocoder_model=voc,
+        vocoder_cfg=hg, device=dev, **kw)[0]
+    for voc_kind in ("hifigan", "griffin_lim"):  # warm-up: cuDNN, cuFFT plans
+        synth(model, fused=True, vocoder=voc_kind)
+    lat = {}
+    for voc_kind in ("hifigan", "griffin_lim"):
+        (res, lat[voc_kind]), c = _counted(
+            f"offline ({voc_kind})",
+            lambda: _timed(lambda: synth(model, fused=True,
+                                         vocoder=voc_kind)),
+            ("encoder_lstm_fwd", "decoder_step_chunk"))
+        _check_result(f"offline ({voc_kind})", res, cfg, steps)
+        counts[f"offline_{voc_kind}"] = c
+    frames = res.mel.shape[0]
+    print(f"offline [{card}] bf16 B=1 bucket 128 max_steps={steps}: "
+          f"synthesize(fused=True) {frames} frames; latency with HiFi-GAN V1 "
+          f"{lat['hifigan']:.1f} ms ({frames / lat['hifigan'] * 1e3:.1f} mel "
+          f"frames/s), with Griffin-Lim (30 iterations) "
+          f"{lat['griffin_lim']:.1f} ms; launches {counts}")
+
+    qmodel = tm.quantize_for_serving(model)
+    synth(qmodel, vocoder="none")                     # warm-up
+    (qres, q_ms), c = _counted(
+        "the quantized path",
+        lambda: _timed(lambda: synth(qmodel, vocoder="none")),
+        ("encoder_lstm_fwd", "int8_matmul"))
+    _check_result("the quantized path", qres, cfg, steps, audio=False)
+    if c["int8_matmul"] != 2 * steps:
+        fail(f"the quantized path launched the int8 kernel "
+             f"{c['int8_matmul']} times, not {2 * steps}")
+    (pres, p_ms), _ = _counted(
+        "the step-by-step path",
+        lambda: _timed(lambda: synth(model, vocoder="none")),
+        ("encoder_lstm_fwd",))
+    qgap = field_err(torch.from_numpy(qres.mel), torch.from_numpy(pres.mel))
+    counts["quantized"] = c
+    print(f"quantized [{card}] bf16 B=1 max_steps={steps}: infer on "
+          f"quantize_for_serving weights {q_ms:.1f} ms "
+          f"({frames / q_ms * 1e3:.1f} mel frames/s); the same step-by-step "
+          f"decoder on bf16 weights {p_ms:.1f} ms; int8 against bf16 "
+          f"weights, mel max |diff| {qgap[0]:.3e} ({qgap[1]:.2e} of the "
+          f"largest value; quantisation, not held); launches {c}")
+
+    # streamed, against the offline pass on the text padded to its bucket
+    # as the streamer pads it
+    ids = text_to_sequence(UTTERANCE, cfg.text_cleaners)
+    bucket = text_bucket(len(ids), cfg.text_buckets)
+    text = torch.zeros(1, bucket, dtype=torch.long)
+    text[0, :len(ids)] = torch.tensor(ids)
+    lengths = torch.tensor([len(ids)], dtype=torch.int32)
+    off = tm.infer_fused(model, text, lengths, cfg, max_steps=steps,
+                         device=dev)
+    n = int(off.mel_lengths[0])
+    off_audio = hifigan.generator(voc, off.mel_postnet, hg)[0, :n * hg.hop_length]
+    streamer = StreamingSynthesizer(model, cfg, vocoder=voc, vocoder_cfg=hg,
+                                    chunk_steps=32, max_steps=steps,
+                                    device=dev)
+    list(streamer.stream(UTTERANCE))                  # warm-up
+
+    def stream():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, mels, audio = None, [], []
+        for ev in streamer.stream(UTTERANCE):
+            if ev.mel is not None:
+                mels.append(torch.from_numpy(ev.mel))
+            if ev.audio is not None:
+                if first is None:
+                    first = (time.perf_counter() - t0) * 1e3
+                audio.append(torch.from_numpy(ev.audio))
+        total = (time.perf_counter() - t0) * 1e3
+        return torch.cat(mels), torch.cat(audio), first, total
+
+    (s_mel, s_audio, first_ms, total_ms), c = _counted(
+        "streaming", stream, ("encoder_lstm_fwd", "decoder_step_chunk"))
+    counts["streamed"] = c
+    if s_mel.shape != (n, cfg.n_mel_channels) \
+            or s_audio.shape != off_audio.shape:
+        fail(f"streamed {tuple(s_mel.shape)} mel, {tuple(s_audio.shape)} "
+             f"audio; offline {n} frames, {tuple(off_audio.shape)} audio")
+    gaps = {"mel": field_err(s_mel, off.mel_postnet[0, :n].cpu()),
+            "audio": field_err(s_audio, off_audio.cpu())}
+    for name, (err, rel) in gaps.items():
+        if rel > STREAM_REL_BF16:
+            fail(f"streamed {name} departs from the offline pass by {err}, "
+                 f"{rel:.3e} of its largest value, beyond {STREAM_REL_BF16}")
+    print(f"streamed [{card}] bf16 B=1 chunk_steps=32 max_steps={steps} with "
+          f"HiFi-GAN V1: first audio after {first_ms:.1f} ms, all {n} frames "
+          f"after {total_ms:.1f} ms; against the offline pass, max |diff| as "
+          f"a share of the largest value (limit {STREAM_REL_BF16}): "
+          + ", ".join(f"{k} {r:.2e}" for k, (_, r) in gaps.items())
+          + f"; launches {c}")
+
+    mc = tmel.MelConfig.from_config(cfg)
+    y = _waveforms(dev, 16, 6 * cfg.sampling_rate, 52)
+    (mels, fe_ms), c = _counted(
+        "the front end",
+        lambda: _timed(lambda: tmel.mel_spectrogram_backend(y, mc, "cuda")),
+        ("mel_spectrogram_fused",))
+    counts["front_end"] = c
+    if tuple(mels.shape) != (16, 80, 1 + y.shape[1] // 256) \
+            or not torch.isfinite(mels).all():
+        fail(f"front end: mel {tuple(mels.shape)}")
+    gap = float((mels - tmel.mel_spectrogram(y, mc)).abs().max())
+    if gap > MEL_LOG_ATOL:
+        fail(f"front end: the kernel backend departs from the torch backend "
+             f"by {gap} in the log domain")
+    print(f"front end [{card}] 16 waveforms of 6 s through "
+          f"mel_spectrogram_backend(..., 'cuda'): {fe_ms:.2f} ms by the host"
+          f" clock, {mels.shape[2]} frames each, against the torch backend "
+          f"max |diff| {gap:.3e} in the log domain; launches {c}")
+    utterance_breakdown(model, voc, hg, cfg, dev, card, text, lengths)
+    return counts
+
+
+def utterance_breakdown(model, voc, hg, cfg, dev, card, text, lengths):
+    """Where one warm utterance (bucket 128, 200 steps, bf16, HiFi-GAN V1)
+    spends its time: host-clock stages, each ended by a synchronize; then
+    torch.profiler over a 64-step ``infer_fused``."""
+    cd = cfg.torch_compute_dtype
+    packed = ds.pack_decoder_params(model, cd)
+    packed_lstm = tm.pack_encoder_lstm(model, cd)
+    text, lengths = text.to(dev), lengths.to(dev)
+    mask = torch.arange(text.shape[1], device=dev)[None] < lengths[:, None]
+    marks = {}
+    for _ in range(2):
+        memory, marks["encode"] = _timed(lambda: tm.encode(
+            model, text, lengths, cfg, compute_dtype=cd,
+            packed_lstm=packed_lstm))
+        processed, marks["processed memory"] = _timed(
+            lambda: tm.processed_memory_of(model, memory, cd))
+        dec, marks["decode (4 chunk calls)"] = _timed(
+            lambda: ds.decode_autoregressive_fused(
+                packed, memory, processed, mask, cfg,
+                max_steps=UTTERANCE_STEPS))
+        post, marks["postnet"] = _timed(lambda: dec[0] + tm.postnet_apply(
+            model, dec[0], cfg, compute_dtype=cd))
+        _, marks["HiFi-GAN V1 (fp32)"] = _timed(
+            lambda: hifigan.generator(voc, post, hg))
+    print(f"utterance breakdown [{card}] bf16 B=1 T_in=128 "
+          f"{UTTERANCE_STEPS} steps, ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in marks.items()))
+    run = lambda: tm.infer_fused(model, text, lengths, cfg, packed=packed,
+                                 packed_lstm=packed_lstm, max_steps=64,
+                                 device=dev)
+    run()
+    torch.cuda.synchronize()
+    print(f"utterance profile [{card}] bf16 B=1 T_in=128 64 steps: "
+          + profile_kernels(run, top=10))
+
+
+def fp32_utterance_phase(cfg, dev, card, seed):
+    """``infer_fused`` at fp32 for 32 steps: the kernels on the card against
+    the plain versions on the CPU, same seeded weights and text."""
+    cfg32 = cfg.replace(compute_dtype="float32")
+    text, lengths = tinfer.encode_texts([UTTERANCE], cfg32)
+    outs = {}
+    for device in (dev, torch.device("cpu")):
+        model = tm.Tacotron2(cfg32, torch.Generator().manual_seed(seed)
+                             ).to(device)
+        outs[device.type] = tm.infer_fused(model, text, lengths, cfg32,
+                                           max_steps=32, device=device)
+    err = 0.0
+    for f in ("mel_postnet", "alignments", "gate_energies"):
+        e, ok = worst(getattr(outs["cuda"], f).cpu(), getattr(outs["cpu"], f),
+                      SERVE_TOL_FP32)
+        err = max(err, e)
+        if not ok:
+            fail(f"fp32 infer_fused: {f} on the card and on the CPU plain "
+                 f"path differ by {e}")
+    print(f"fp32 utterance [{card}] infer_fused, 32 steps: kernels on the "
+          f"card against the plain path on the CPU, max |err| {err:.3e} "
+          f"(atol {SERVE_TOL_FP32[0]}, rtol {SERVE_TOL_FP32[1]})")
 
 
 # ------------------------------------------------------------ training
@@ -1099,6 +1622,11 @@ def main() -> int:
     breakdown_phase(served, cfg, dev, card)
     fp32_phase(cfg, dev, card, seed)
     del served
+    step = step_phase(model, cfg, dev, card)
+    int8 = int8_phase(dev, card)
+    mel = mel_phase(cfg, dev, card)
+    utt = utterance_phase(cfg, dev, card, seed)
+    fp32_utterance_phase(cfg, dev, card, seed)
     scan_fwd, scan_bwd = scan_phase(model, cfg, dev, card)
     enc_bwd = encoder_train_phase(model, dev, card, enc)
     del model
@@ -1110,7 +1638,13 @@ def main() -> int:
     dec["launches"] = counts["decoder_chunk"]
     for k in (scan_fwd, scan_bwd, enc_bwd):
         k["launches"] = train_counts[k["name"]]
-    print(json.dumps({"kernels": [scan_fwd, scan_bwd, enc, enc_bwd, dec]}))
+    step["launches"] = sum(utt[k]["decoder_step_chunk"] for k in (
+        "offline_hifigan", "offline_griffin_lim", "streamed"))
+    enc["launches_one_utterance"] = utt["offline_hifigan"]["encoder_lstm_fwd"]
+    int8["launches"] = utt["quantized"]["int8_matmul"]
+    mel["launches"] = utt["front_end"]["mel_spectrogram_fused"]
+    print(json.dumps({"kernels": [scan_fwd, scan_bwd, enc, enc_bwd, dec,
+                                  step, int8, mel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

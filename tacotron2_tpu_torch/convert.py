@@ -6,13 +6,20 @@ reference-format state_dict -- the same keys and layouts as the JAX
 package's ``convert.export_state_dict`` -- as torch tensors, which
 ``models.tacotron2.Tacotron2(cfg).load_state_dict(sd, strict=True)`` takes.
 This is the port's own copy of that mapping; it needs nothing of the JAX
-package.
+package. A quantized JAX cell (``{"w_q", "scale", "bias"}``, the JAX
+package's ``quantize_for_serving``) comes across as the buffers of a
+``QuantizedLSTMCell`` (``<cell>.w_q``, ``.scale``, ``.bias``), which a model
+from ``models.tacotron2.quantize_for_serving`` loads.
+``hifigan_state_dict_from_jax(params, cfg)`` does the same for the HiFi-GAN
+generator (``models.hifigan.Generator``).
 
 Layouts (JAX -> torch):
 - dense kernel (in, out) -> Linear weight (out, in)            [transpose]
 - conv kernel (k, in, out) -> Conv1d weight (out, in, k)       [transpose]
 - LSTM wi (in, 4H) -> weight_ih (4H, in); gate order i, f, g, o is the same
 - batchnorm scale/offset -> weight/bias; running stats from ``stats``
+- transposed-conv kernel (k, in, out), which ``jax.lax.conv_transpose``
+  applies unflipped -> ConvTranspose1d weight (in, out, k)  [flip k, transpose]
 """
 
 from __future__ import annotations
@@ -52,6 +59,11 @@ def state_dict_from_jax(params: Dict, stats: Dict, cfg: Tacotron2Config
         out[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
 
     def lstm(prefix, p, suffix=""):
+        if "w_q" in p:  # int8 serving form of a decoder cell
+            out[f"{prefix}.w_q"] = np.asarray(p["w_q"], dtype=np.int8)
+            out[f"{prefix}.scale"] = _t(p["scale"])
+            out[f"{prefix}.bias"] = _t(p["bias"])
+            return
         out[f"{prefix}.weight_ih{suffix}"] = _t(p["wi"]).T
         out[f"{prefix}.weight_hh{suffix}"] = _t(p["wh"]).T
         out[f"{prefix}.bias_ih{suffix}"] = _t(p["bi"])
@@ -86,5 +98,31 @@ def state_dict_from_jax(params: Dict, stats: Dict, cfg: Tacotron2Config
         conv(f"postnet.convolutions.{i}.0.conv", layer["conv"])
         bn(f"postnet.convolutions.{i}.1", layer["bn"],
            stats["postnet"]["convs"][i])
+    return _tensors(out)
+
+
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True, order="C"))
             for k, v in out.items()}
+
+
+def hifigan_state_dict_from_jax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """The JAX package's HiFi-GAN generator params -> the state_dict of
+    ``models.hifigan.Generator(cfg)`` (``cfg`` a ``HiFiGANConfig``)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def conv(prefix, p):
+        out[f"{prefix}.weight"] = _t(p["kernel"]).transpose(2, 1, 0)
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+    conv("conv_pre", params["conv_pre"])
+    n_res = len(cfg.resblock_kernel_sizes)
+    for i, up in enumerate(params["ups"]):
+        out[f"ups.{i}.weight"] = _t(up["kernel"])[::-1].transpose(1, 2, 0)
+        out[f"ups.{i}.bias"] = _t(up["bias"])
+        for j, block in enumerate(params["resblocks"][i]):
+            for name in ("convs1", "convs2"):
+                for d, p in enumerate(block[name]):
+                    conv(f"resblocks.{i * n_res + j}.{name}.{d}", p)
+    conv("conv_post", params["conv_post"])
+    return _tensors(out)

@@ -1,5 +1,5 @@
-"""Data helpers of the port: text-length bucketing."""
+"""Data helpers of the port: text- and mel-length bucketing."""
 
-from tacotron2_tpu_torch.data.bucketing import text_bucket
+from tacotron2_tpu_torch.data.bucketing import mel_bucket, text_bucket
 
-__all__ = ["text_bucket"]
+__all__ = ["text_bucket", "mel_bucket"]

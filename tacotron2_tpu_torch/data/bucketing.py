@@ -1,8 +1,9 @@
-"""Static text-length buckets for the batched serving path.
+"""Static length buckets for the serving paths.
 
-The port's copy of the JAX package's ``text_bucket``: every batch is padded
-to one of a few fixed text lengths, so the serving hot path sees a bounded
-set of shapes.
+The port's copy of the JAX package's ``text_bucket`` and ``mel_bucket``:
+every batch is padded to one of a few fixed text lengths, and a vocoder
+request to a multiple of a fixed number of mel frames, so the serving hot
+path sees a bounded set of shapes.
 """
 
 from __future__ import annotations
@@ -37,3 +38,8 @@ def text_bucket(length: int, buckets: Sequence[int]) -> int:
             f"(one extra shape). Add larger text_buckets to the config to "
             f"silence this.", stacklevel=2)
     return extended
+
+
+def mel_bucket(length: int, step: int, max_length: int) -> int:
+    """Smallest multiple of ``step`` >= length, capped at ``max_length``."""
+    return min(step * math.ceil(length / step), max_length)

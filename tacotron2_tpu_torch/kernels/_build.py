@@ -24,7 +24,8 @@ from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("encoder_lstm", "decoder_batch", "train_scan")
+SOURCES = ("encoder_lstm", "decoder_batch", "train_scan", "decoder_step",
+           "int8_matmul", "mel_kernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

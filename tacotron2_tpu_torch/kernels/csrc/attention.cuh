@@ -48,12 +48,15 @@ __device__ float block_reduce(float v, float* red, bool is_max) {
 }
 
 // Attention energies e (B, T) for E_TILE positions of one row. Thread
-// layout: one warp per position, its 32 lanes over the attention dim.
-template <typename W>
+// layout: one warp per position, its 32 lanes over the attention dim. L is
+// the type of the location term's operands (K2, w, w_cum) and of the
+// processed memory: W in the batched and training kernels, float in the
+// single-utterance decoder, whose TPU kernel keeps that term in fp32.
+template <typename W, typename L = W>
 __global__ void __launch_bounds__(SM_THREADS)
 energy_kernel(const float* __restrict__ q, const float* __restrict__ w,
-              const float* __restrict__ wc, const W* __restrict__ k2,
-              const W* __restrict__ v, const W* __restrict__ proc,
+              const float* __restrict__ wc, const L* __restrict__ k2,
+              const W* __restrict__ v, const L* __restrict__ proc,
               float* __restrict__ e, int T, int D, int ks) {
   extern __shared__ float sm[];
   const int row = blockIdx.y, t0 = blockIdx.x * E_TILE;
@@ -65,8 +68,8 @@ energy_kernel(const float* __restrict__ q, const float* __restrict__ w,
   float* win1 = win0 + ww;     // w_cum window
   float* pr = win1 + ww;       // proc of the block's positions (E_TILE, D)
   const int nt = min(E_TILE, T - t0);
-  stage<W, SM_THREADS>(k2s, k2, ks * 2 * D);
-  stage<W, SM_THREADS>(pr, proc + ((size_t)row * T + t0) * D, nt * D);
+  stage<L, SM_THREADS>(k2s, k2, ks * 2 * D);
+  stage<L, SM_THREADS>(pr, proc + ((size_t)row * T + t0) * D, nt * D);
   for (int i = threadIdx.x; i < D; i += SM_THREADS) {
     qs[i] = q[(size_t)row * D + i];
     vs[i] = to_f<W>(v[i]);
@@ -74,8 +77,8 @@ energy_kernel(const float* __restrict__ q, const float* __restrict__ w,
   for (int j = threadIdx.x; j < ww; j += SM_THREADS) {
     const int pos = t0 - pad + j;
     const bool in = pos >= 0 && pos < T;
-    win0[j] = in ? rnd<W>(w[(size_t)row * T + pos]) : 0.0f;
-    win1[j] = in ? rnd<W>(wc[(size_t)row * T + pos]) : 0.0f;
+    win0[j] = in ? rnd<L>(w[(size_t)row * T + pos]) : 0.0f;
+    win1[j] = in ? rnd<L>(wc[(size_t)row * T + pos]) : 0.0f;
   }
   __syncthreads();
   const int dg = threadIdx.x & 31, tl = threadIdx.x >> 5;

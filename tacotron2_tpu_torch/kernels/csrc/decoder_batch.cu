@@ -46,6 +46,8 @@
 //   6 lstm_kernel        again, for the decoder LSTM
 //   7 proj_kernel        32 projection columns x one row per block; the block
 //                        holding the gate column latches the row
+// (Kernels 1, 3 and 7 work on one row per block and are shared with the
+// single-utterance chunk: decoder_common.cuh.)
 // Launch boundaries are the grid-wide barriers between phases. h1, h2 and
 // the latch are double-buffered, because blocks of one launch read the old
 // value of the whole row while others write the new one. Every product
@@ -57,51 +59,8 @@
 #include <math.h>
 
 #include "attention.cuh"
+#include "decoder_common.cuh"
 #include "lstm_cell.cuh"
-
-#define DEC_UNITS 8      // hidden units per lstm_kernel block
-#define DEC_THREADS 1024 // lstm, prenet, query, proj blocks
-#define PRE_COLS 64      // second-layer prenet columns per block
-#define PROJ_COLS 32     // projection columns per proj_kernel block
-#define GATE_MASK 1e3f   // gate value of finished rows (reference model.py:495)
-
-// 1. prenet: PRE_COLS columns of a2 (B, p) fp32 from prev (B, n) per
-// block; every block of a row recomputes the whole first layer (n x p).
-template <typename W>
-__global__ void __launch_bounds__(DEC_THREADS)
-prenet_kernel(const float* __restrict__ prev, const W* __restrict__ pre1,
-              const W* __restrict__ pre2, const float* __restrict__ kp1,
-              const float* __restrict__ kp2, float* __restrict__ a2, int step,
-              int B, int n, int p) {
-  constexpr int COLS1 = 256;
-  extern __shared__ float sm[];
-  float* pm = sm;           // n
-  float* a1 = pm + n;       // p
-  float* o2 = a1 + p;       // PRE_COLS
-  float* red = o2 + PRE_COLS;  // DEC_THREADS
-  const int row = blockIdx.y, c2 = blockIdx.x * PRE_COLS;
-  for (int i = threadIdx.x; i < n; i += DEC_THREADS)
-    pm[i] = rnd<W>(prev[(size_t)row * n + i]);
-  __syncthreads();
-  for (int c0 = 0; c0 < p; c0 += COLS1)
-    block_matvec<W, DEC_THREADS, COLS1>(pm, n, pre1, p, c0, min(COLS1, p - c0),
-                                        red, a1 + c0);
-  const size_t kbase = ((size_t)step * B + row) * p;
-  for (int j = threadIdx.x; j < p; j += DEC_THREADS) {
-    float s = fmaxf(a1[j], 0.0f);
-    if (kp1) s *= kp1[kbase + j] * 2.0f;
-    a1[j] = rnd<W>(s);
-  }
-  __syncthreads();
-  const int ncols = min(PRE_COLS, p - c2);
-  block_matvec<W, DEC_THREADS, PRE_COLS>(a1, p, pre2, p, c2, ncols, red, o2);
-  if (threadIdx.x < ncols) {
-    const int j = c2 + threadIdx.x;
-    float s = fmaxf(o2[threadIdx.x], 0.0f);
-    if (kp2) s *= kp2[kbase + j] * 2.0f;
-    a2[(size_t)row * p + j] = s;
-  }
-}
 
 // 2 and 6. LSTM cell over the input [s0 ; s1 ; s2] (fp32 sources, rounded to
 // W here); c updated in place (each element by the one thread that owns
@@ -152,64 +111,6 @@ lstm_kernel(const float* __restrict__ s0, int L0, const float* __restrict__ s1,
     const float cn = sigmoid_f(gff) * c[idx] + sigmoid_f(gi) * tanhf(gg);
     c[idx] = cn;
     h_out[idx] = sigmoid_f(go) * tanhf(cn);
-  }
-}
-
-// 3. q (B, D) = h1 @ wq, rounded to W (the TPU kernel rounds q into its cat
-// vector before the location product); 32 columns of one row per block.
-template <typename W>
-__global__ void __launch_bounds__(DEC_THREADS)
-query_kernel(const float* __restrict__ h1, const W* __restrict__ wq,
-             float* __restrict__ q, int A, int D) {
-  extern __shared__ float sm[];
-  float* hs = sm;             // A
-  float* red = hs + A;        // DEC_THREADS
-  float* out = red + DEC_THREADS;  // 32
-  const int row = blockIdx.y, c0 = blockIdx.x * 32;
-  const int ncols = min(32, D - c0);
-  for (int i = threadIdx.x; i < A; i += DEC_THREADS)
-    hs[i] = rnd<W>(h1[(size_t)row * A + i]);
-  __syncthreads();
-  block_matvec<W, DEC_THREADS, 32>(hs, A, wq, D, c0, ncols, red, out);
-  if (threadIdx.x < ncols)
-    q[(size_t)row * D + c0 + threadIdx.x] = rnd<W>(out[threadIdx.x]);
-}
-
-// 7. PROJ_COLS columns of the mel + gate projection of one row per block;
-// the block holding the gate column also latches the row and counts its
-// length. The latch reads fin_in and writes fin_out (double-buffered: other
-// blocks of the launch read the row's old latch).
-template <typename W>
-__global__ void __launch_bounds__(DEC_THREADS)
-proj_kernel(const float* __restrict__ h2, const float* __restrict__ ctx,
-            const W* __restrict__ wpe, const float* __restrict__ bpe,
-            float* __restrict__ mel, float* __restrict__ gate,
-            float* __restrict__ prev, const int* __restrict__ fin_in,
-            int* __restrict__ fin_out, int* __restrict__ len, int step,
-            int t_abs, float gate_logit, int B, int D, int E, int n) {
-  extern __shared__ float sm[];
-  const int K = D + E, NO = n + 1;
-  float* x3 = sm;                  // K
-  float* outs = x3 + K;            // PROJ_COLS
-  float* red = outs + PROJ_COLS;   // DEC_THREADS
-  const int row = blockIdx.y, c0 = blockIdx.x * PROJ_COLS;
-  const int ncols = min(PROJ_COLS, NO - c0);
-  const bool done = fin_in[row] != 0;
-  for (int k = threadIdx.x; k < K; k += DEC_THREADS)
-    x3[k] = rnd<W>(k < D ? h2[(size_t)row * D + k] : ctx[(size_t)row * E + (k - D)]);
-  __syncthreads();
-  block_matvec<W, DEC_THREADS, PROJ_COLS>(x3, K, wpe, NO, c0, ncols, red, outs);
-  if (threadIdx.x >= ncols) return;
-  const int col = c0 + threadIdx.x;
-  const float v = outs[threadIdx.x] + bpe[col];
-  const size_t o = (size_t)step * B + row;
-  if (col < n) {
-    mel[o * n + col] = done ? 0.0f : v;
-    prev[(size_t)row * n + col] = v;
-  } else {
-    gate[o] = done ? GATE_MASK : v;
-    if (!done) len[row] = t_abs + 1;
-    fin_out[row] = (done || v > gate_logit) ? 1 : 0;
   }
 }
 
@@ -285,7 +186,8 @@ static cudaError_t run(const Chunk& c, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   T2_SMEM(prenet_kernel<W>, sm[K_PRENET]);
   T2_SMEM(lstm_kernel<W>, sm[K_LSTM]);
-  T2_SMEM(query_kernel<W>, sm[K_QUERY]);
+  auto query = query_kernel<W, true>;  // a name without a comma, for the macro
+  T2_SMEM(query, sm[K_QUERY]);
   T2_SMEM(energy_kernel<W>, sm[K_ENERGY]);
   T2_SMEM(softmax_ctx_kernel<W>, sm[K_SOFTMAX_CTX]);
   T2_SMEM(proj_kernel<W>, sm[K_PROJ]);
@@ -311,7 +213,7 @@ static cudaError_t run(const Chunk& c, cudaStream_t s) {
     lstm_kernel<W><<<g_l1, DEC_THREADS, sm[K_LSTM], s>>>(
         c.a2, c.p, c.ctx, c.E, h1_in, c.A, (const W*)c.w1, c.b1, c.c1, h1_out,
         c.B, c.A);
-    query_kernel<W><<<g_q, DEC_THREADS, sm[K_QUERY], s>>>(
+    query<<<g_q, DEC_THREADS, sm[K_QUERY], s>>>(
         h1_out, (const W*)c.wq, c.q, c.A, c.datt);
     energy_kernel<W><<<g_e, SM_THREADS, sm[K_ENERGY], s>>>(
         c.q, c.w, c.wc, (const W*)c.k2, (const W*)c.v, proc, c.e, c.T, c.datt,

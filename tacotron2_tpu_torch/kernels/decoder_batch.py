@@ -96,6 +96,9 @@ def pack_batch_decoder_params(model, dtype: torch.dtype) -> BatchDecoderParams:
     """Pack a ``models.tacotron2.Tacotron2``'s decoder for the chunk."""
     dec = model.decoder
     att = dec.attention_layer
+    if not hasattr(dec.attention_rnn, "weight_ih"):
+        raise ValueError("the decoder kernels need unquantized LSTM weights "
+                         "(a quantized model decodes through infer)")
     with torch.no_grad():
         def lstm(cell):
             w = torch.cat([cell.weight_ih, cell.weight_hh], dim=1).t()
@@ -239,10 +242,15 @@ _SIGNATURES = {"decoder_chunk": [_I] + [_P] * 32 + [_I] * 11
 
 
 def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
-                         chunk_steps) -> None:
+                         chunk_steps, limits=_limits, att_dtype=None) -> None:
+    """Shapes, types, device and contiguity of a chunk's tensors, then the
+    kernel's own limits. ``att_dtype`` is the type of K2, memory and
+    processed memory (the weights' type unless given); ``limits`` the
+    function that asks the kernel's source."""
     W = fp.w1.dtype
     if W not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decoder kernel takes fp32 or bf16, got {W}")
+    L = att_dtype or W
     B, T, e = mem.shape
     n, p = fp.pre1.shape
     a, d = fp.w1.shape[0] * _DEC_UNITS, fp.w2.shape[0] * _DEC_UNITS
@@ -255,9 +263,9 @@ def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
         "b1": (fp.b1, (4 * a,), f32),
         "w2": (fp.w2, (d // _DEC_UNITS, a + e + d, c), W),
         "b2": (fp.b2, (4 * d,), f32), "wq": (fp.wq, (a, datt), W),
-        "k2": (fp.k2, (ks, 2, datt), W), "v": (fp.v, (datt,), W),
+        "k2": (fp.k2, (ks, 2, datt), L), "v": (fp.v, (datt,), W),
         "wpe": (fp.wpe, (d + e, n + 1), W), "bpe": (fp.bpe, (n + 1,), f32),
-        "mem": (mem, (B, T, e), W), "proc": (proc, (B, T, datt), W),
+        "mem": (mem, (B, T, e), L), "proc": (proc, (B, T, datt), L),
         "emask": (emask, (B, T), f32),
         "h1": (carry.h1, (B, a), f32), "c1": (carry.c1, (B, a), f32),
         "h2": (carry.h2, (B, d), f32), "c2": (carry.c2, (B, d), f32),
@@ -275,7 +283,7 @@ def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
         if not t.is_cuda or t.device != mem.device or not t.is_contiguous():
             raise ValueError(f"{name}: decoder kernel inputs must be "
                              f"contiguous tensors on one CUDA device")
-    reason = _limits(mem.device, T, n, p, e, a, d, datt, ks)
+    reason = limits(mem.device, T, n, p, e, a, d, datt, ks)
     if reason is not None:
         raise ValueError(f"decoder kernel: {reason}")
 
@@ -354,9 +362,10 @@ def decode_chunk_batch(fp: BatchDecoderParams, carry, memory: torch.Tensor,
     return _decode_chunk(fp, carry, inputs, cfg, chunk_steps, keep_masks)
 
 
-def _decode_chunk(fp, carry, inputs, cfg, chunk_steps, keep_masks):
+def _decode_chunk(fp, carry, inputs, cfg, chunk_steps, keep_masks,
+                  chunk=decoder_chunk):
     """``decode_chunk_batch`` on attention inputs already prepared by
-    ``attention_inputs``."""
+    ``attention_inputs``, through the chunk function ``chunk``."""
     mem, proc, emask = inputs
     B = mem.shape[0]
     r = cfg.n_frames_per_step
@@ -369,10 +378,9 @@ def _decode_chunk(fp, carry, inputs, cfg, chunk_steps, keep_masks):
                     carry.lengths.int().contiguous())
     kp1, kp2 = (None, None) if keep_masks is None else (
         f32(keep_masks[0]), f32(keep_masks[1]))
-    out = decoder_chunk(fp, cc, mem, proc, emask, t0=int(carry.t),
-                        chunk_steps=chunk_steps,
-                        gate_logit=gate_logit_threshold(cfg), kp1=kp1,
-                        kp2=kp2)
+    out = chunk(fp, cc, mem, proc, emask, t0=int(carry.t),
+                chunk_steps=chunk_steps, gate_logit=gate_logit_threshold(cfg),
+                kp1=kp1, kp2=kp2)
     mel = (out.mel.transpose(0, 1)
            .reshape(B, chunk_steps * r, cfg.n_mel_channels))
     gate = out.gate.t().repeat_interleave(r, dim=1)
@@ -401,12 +409,20 @@ def decode_autoregressive_batch(fp: BatchDecoderParams, memory: torch.Tensor,
     (B, t_max*r, n_mels), gate (B, t_max*r), align (B, t_max*r, T_in),
     lengths (B,) in frames. ``generator`` (on the memory's device) draws
     the prenet keep masks of the reference's inference-time dropout."""
+    inputs = attention_inputs(memory, processed_memory, mask, fp.w1.dtype)
+    return _autoregressive(fp, inputs, memory, cfg, max_steps, chunk_steps,
+                           generator)
+
+
+def _autoregressive(fp, inputs, memory, cfg, max_steps, chunk_steps,
+                    generator, chunk=decoder_chunk):
+    """The host loop of ``decode_autoregressive_batch`` on prepared
+    attention inputs, through the chunk function ``chunk``."""
     from tacotron2_tpu_torch.models.tacotron2 import init_stream_carry
 
     B, t_in, _ = memory.shape
     r = cfg.n_frames_per_step
     t_max = max_steps or cfg.max_decoder_steps
-    inputs = attention_inputs(memory, processed_memory, mask, fp.w1.dtype)
     carry = init_stream_carry(memory, cfg)
     mels, gates, aligns = [], [], []
     while carry.t < t_max and not bool(carry.finished.all()):
@@ -418,7 +434,7 @@ def decode_autoregressive_batch(fp: BatchDecoderParams, memory: torch.Tensor,
                                     device=memory.device) < 0.5
                          for _ in range(2))
         carry, (mel, gate, align) = _decode_chunk(fp, carry, inputs, cfg, cs,
-                                                  keep)
+                                                  keep, chunk)
         mels.append(mel)
         gates.append(gate)
         aligns.append(align)

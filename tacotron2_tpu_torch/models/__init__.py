@@ -1,5 +1,5 @@
-"""Tacotron 2 acoustic model."""
+"""Tacotron 2 acoustic model and the HiFi-GAN generator."""
 
-from tacotron2_tpu_torch.models import tacotron2
+from tacotron2_tpu_torch.models import hifigan, tacotron2
 
-__all__ = ["tacotron2"]
+__all__ = ["tacotron2", "hifigan"]

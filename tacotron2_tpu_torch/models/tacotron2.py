@@ -8,7 +8,8 @@ package's ``models/tacotron2.py`` one by one, taking the module where JAX
 takes its params pytree; activations keep its channels-last ``(B, T, C)``
 layout and mel tensors are ``(B, T, n_mels)``.
 
-Serving (``infer``, ``infer_batch_fused``): batchnorm runs in eval mode on
+Serving (``infer``, ``infer_batch_fused``, and for one utterance
+``infer_fused``): batchnorm runs in eval mode on
 its running statistics, and dropout acts only in the prenet (reference
 model.py:99), from an explicit ``torch.Generator`` or from keep masks handed
 in. Training (``forward`` with ``training=True``, driven by
@@ -29,6 +30,7 @@ Fidelity notes (traps from the reference, all preserved):
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -36,14 +38,15 @@ from torch import nn
 
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.kernels import decoder_batch as db
+from tacotron2_tpu_torch.kernels import decoder_step as ds
 from tacotron2_tpu_torch.kernels import encoder_lstm
 from tacotron2_tpu_torch.kernels import train_scan
 from tacotron2_tpu_torch.models import decoder_vjp
 from tacotron2_tpu_torch.ops import initializers as init
 from tacotron2_tpu_torch.ops.layers import (batchnorm, batchnorm_train, conv1d,
                                             dense, dropout, length_mask)
-from tacotron2_tpu_torch.ops.lstm import (LSTMWeights, bilstm, lstm_cell,
-                                          lstm_weights)
+from tacotron2_tpu_torch.ops.lstm import (LSTMWeights, QuantizedLSTMCell,
+                                          bilstm, lstm_cell, lstm_weights)
 
 MASKED_GATE_ENERGY = 1e3  # reference model.py:495
 
@@ -676,6 +679,70 @@ def infer_batch_fused(model: Tacotron2, text: torch.Tensor,
     return _finish(model, mel, gate, align, lengths, cfg, compute_dtype)
 
 
+def infer_fused(model: Tacotron2, text: torch.Tensor,
+                text_lengths: torch.Tensor, cfg: Tacotron2Config, *,
+                packed: Optional[ds.FusedDecoderParams] = None,
+                packed_lstm: Optional[encoder_lstm.PackedBiLSTM] = None,
+                max_steps: Optional[int] = None, chunk_steps: int = 64,
+                compute_dtype=None,
+                generator: Optional[torch.Generator] = None,
+                device: Union[str, torch.device] = "cuda"
+                ) -> InferenceResult:
+    """``infer`` for one utterance (B=1) through the single-utterance
+    decoder chunk (kernels/decoder_step): the hand-written CUDA kernel on a
+    CUDA model, its plain version on a CPU one. ``packed`` and
+    ``packed_lstm`` are the reusable ``pack_decoder_params`` and
+    ``pack_encoder_lstm`` results in the compute dtype (built on the fly if
+    omitted). ``generator`` with ``prenet_dropout_at_inference`` runs the
+    reference's inference-time prenet dropout; None runs the deterministic
+    prenet. The model must already be on ``device``."""
+    if text.shape[0] != 1:
+        raise ValueError("the fused decode takes one utterance (B=1)")
+    text, text_lengths = _on_device(model, text, text_lengths, device)
+    if compute_dtype is None:
+        compute_dtype = cfg.torch_compute_dtype
+    kdtype = compute_dtype
+    if compute_dtype == torch.float32:
+        compute_dtype = None  # full fp32, as the JAX package's None
+    if packed is None:
+        packed = ds.pack_decoder_params(model, kdtype)
+    if not cfg.prenet_dropout_at_inference:
+        generator = None
+    memory = encode(model, text, text_lengths, cfg,
+                    compute_dtype=compute_dtype, packed_lstm=packed_lstm)
+    processed = processed_memory_of(model, memory, compute_dtype)
+    mask = length_mask(text_lengths, memory.shape[1])
+    mel, gate, align, lengths = ds.decode_autoregressive_fused(
+        packed, memory, processed, mask, cfg, max_steps=max_steps,
+        chunk_steps=chunk_steps, generator=generator)
+    return _finish(model, mel, gate, align, lengths, cfg, compute_dtype)
+
+
+def is_quantized(model: Tacotron2) -> bool:
+    """Whether the decoder's LSTM cells hold int8 weights
+    (``quantize_for_serving``)."""
+    return isinstance(model.decoder.attention_rnn, QuantizedLSTMCell)
+
+
+def quantize_for_serving(model: Tacotron2) -> Tacotron2:
+    """A copy of ``model`` in its int8 weight-only serving form: the two
+    decoder LSTM cells, whose weights are nearly all that a decoder step at
+    B=1 reads, become ``QuantizedLSTMCell``s (state_dict keys
+    ``decoder.attention_rnn.w_q``, ``.scale``, ``.bias`` and the same for
+    ``decoder_rnn``); everything else, which runs once per utterance or is
+    small, stays as it is. The copy goes through ``infer``,
+    ``decode_autoregressive``, ``decode_chunk`` and the serving layers; the
+    kernel packers and the training forms reject it (the int8 product has
+    no backward)."""
+    out = copy.deepcopy(model)
+    for name in ("attention_rnn", "decoder_rnn"):
+        cell = getattr(out.decoder, name)
+        if not isinstance(cell, QuantizedLSTMCell):
+            setattr(out.decoder, name,
+                    QuantizedLSTMCell.from_weights(lstm_weights(cell)))
+    return out
+
+
 # ======================================================================
 # Training forms (teacher forcing)
 # ======================================================================
@@ -693,6 +760,10 @@ def decode_teacher_forced(model: Tacotron2, memory: torch.Tensor,
     (model.py:99); in training the two LSTM-output dropouts draw their keep
     masks from it too, unless ``keep`` hands them in. Returns
     (mel (B, T_out, n_mels), gate (B, T_out), align (B, T_out, T_in))."""
+    if is_quantized(model):
+        raise ValueError("the training forms need unquantized weights: the "
+                         "int8 product of quantize_for_serving has no "
+                         "backward")
     B, T_out, n_mels = mels.shape
     r = cfg.n_frames_per_step
     if T_out % r:

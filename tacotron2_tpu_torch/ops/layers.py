@@ -36,13 +36,35 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None,
-           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           compute_dtype: Optional[torch.dtype] = None, *,
+           dilation: int = 1) -> torch.Tensor:
     """SAME conv over time. x: (B, T, C_in), weight: (C_out, C_in, k) with k
-    odd -> (B, T, C_out) (reference layers.py:26-27 auto padding)."""
+    odd -> (B, T, C_out) (reference layers.py:26-27 auto padding,
+    dilation * (k - 1) / 2)."""
     xc, wc = _cast(x, weight, compute_dtype)
     k = weight.shape[-1]
-    y = F.conv1d(xc.transpose(1, 2), wc, padding=(k - 1) // 2)
+    y = F.conv1d(xc.transpose(1, 2), wc, padding=dilation * (k - 1) // 2,
+                 dilation=dilation)
     y = y.transpose(1, 2)
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, *, stride: int,
+                     compute_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
+    """Fractionally-strided conv with torch ConvTranspose1d semantics at
+    padding=(k-stride)//2: x (B, T, C_in), weight (C_in, C_out, k) ->
+    (B, T*stride, C_out). The JAX package's ``conv_transpose1d``: the full
+    transposed conv, (T-1)*stride + k long, with (k-stride)//2 trimmed from
+    the front and T*stride kept (the vocoder upsampling stacks)."""
+    xc, wc = _cast(x, weight, compute_dtype)
+    k = weight.shape[-1]
+    y = F.conv_transpose1d(xc.transpose(1, 2), wc, stride=stride)
+    pad = (k - stride) // 2
+    y = y[:, :, pad:pad + x.shape[1] * stride].transpose(1, 2)
     if bias is not None:
         y = y + bias
     return y

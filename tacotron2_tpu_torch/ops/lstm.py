@@ -13,6 +13,11 @@ CUDA tensor, their plain versions for a CPU tensor. It is differentiable:
 the scans through their autograd Function (the backward kernel), and the
 length reversal as a gather, whose backward is the scatter-add the JAX
 package's ``take_along_axis`` transposes to.
+
+``quantize_lstm_params`` gives the weight-only int8 serving form of a cell
+(``QuantizedLSTMWeights``; ``QuantizedLSTMCell`` holds it as buffers), and
+``lstm_cell`` dispatches on it to ``kernels.int8_matmul``: inference only,
+there is no backward.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from tacotron2_tpu_torch.kernels import encoder_lstm
+from tacotron2_tpu_torch.kernels.int8_matmul import int8_matmul, quantize_int8
 from tacotron2_tpu_torch.ops.layers import dense, length_mask
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (h, c)
@@ -35,11 +41,64 @@ class LSTMWeights(NamedTuple):
     b_hh: torch.Tensor  # (4H,)
 
 
-def lstm_weights(module: nn.Module, suffix: str = "") -> LSTMWeights:
+class QuantizedLSTMWeights(NamedTuple):
+    """Weight-only int8 serving form of a cell (``quantize_lstm_params``)."""
+    w_q: torch.Tensor    # (in + H, 4H) int8, [w_ih ; w_hh] transposed
+    scale: torch.Tensor  # (4H,) fp32 per output channel
+    bias: torch.Tensor   # (4H,) fp32, b_ih + b_hh
+
+
+class QuantizedLSTMCell(nn.Module):
+    """Holds a quantized cell's ``w_q``, ``scale`` and ``bias`` as buffers
+    (zeros until filled by ``from_weights`` or ``load_state_dict``)."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.input_size, self.hidden_size = input_size, hidden_size
+        G = 4 * hidden_size
+        self.register_buffer("w_q", torch.zeros(input_size + hidden_size, G,
+                                                dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(G))
+        self.register_buffer("bias", torch.zeros(G))
+
+    @classmethod
+    def from_weights(cls, p: LSTMWeights) -> "QuantizedLSTMCell":
+        cell = cls(p.w_ih.shape[1], p.w_hh.shape[1])
+        q = quantize_lstm_params(p)
+        dev = p.w_ih.device
+        cell.w_q, cell.scale, cell.bias = (x.to(dev) for x in q)
+        return cell
+
+
+def lstm_weights(module: nn.Module, suffix: str = ""):
     """The four tensors of an ``nn.LSTMCell`` (suffix "") or of one
-    direction of an ``nn.LSTM`` (suffix "_l0" or "_l0_reverse")."""
+    direction of an ``nn.LSTM`` (suffix "_l0" or "_l0_reverse"); the
+    ``QuantizedLSTMWeights`` of a ``QuantizedLSTMCell``."""
+    if isinstance(module, QuantizedLSTMCell):
+        return QuantizedLSTMWeights(module.w_q, module.scale, module.bias)
     return LSTMWeights(*(getattr(module, f"{n}{suffix}") for n in
                          ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
+
+
+def quantize_lstm_params(p: LSTMWeights) -> QuantizedLSTMWeights:
+    """Weight-only int8 serving form of an LSTM cell's parameters: the two
+    gate matrices stacked ([w_ih ; w_hh] as (in + H, 4H), so one kernel call
+    streams both) and quantized per output channel, the biases summed."""
+    w = torch.cat([p.w_ih, p.w_hh], dim=1).t()
+    w_q, scale = quantize_int8(w)
+    bias = (p.b_ih.detach().float() + p.b_hh.detach().float()).cpu()
+    return QuantizedLSTMWeights(w_q, scale, bias)
+
+
+def _lstm_cell_int8(p: QuantizedLSTMWeights, x: torch.Tensor,
+                    state: State) -> State:
+    """Quantized-weight cell: the int8 weights are widened inside
+    ``kernels.int8_matmul``, which rounds [x ; h] to bf16 itself; h stays
+    fp32 in the concatenation and the bias is added in fp32."""
+    h, c = state
+    xs = torch.cat([x.float(), h], dim=-1)
+    gates = int8_matmul(xs, p.w_q, p.scale) + p.bias
+    return lstm_apply_gates(gates, c)
 
 
 def lstm_gates(p: LSTMWeights, x: torch.Tensor, h: torch.Tensor,
@@ -61,7 +120,11 @@ def lstm_apply_gates(gates: torch.Tensor, c: torch.Tensor) -> State:
 
 def lstm_cell(p: LSTMWeights, x: torch.Tensor, state: State,
               compute_dtype: Optional[torch.dtype] = None) -> State:
-    """One LSTM step. x: (B, in); state: ((B, H), (B, H)) fp32."""
+    """One LSTM step. x: (B, in); state: ((B, H), (B, H)) fp32. Quantized
+    weights (``quantize_lstm_params``) take the int8 path, whatever the
+    compute dtype."""
+    if isinstance(p, QuantizedLSTMWeights):
+        return _lstm_cell_int8(p, x, state)
     h, c = state
     return lstm_apply_gates(lstm_gates(p, x, h, compute_dtype), c)
 

@@ -5,9 +5,13 @@ batches (``max_batch`` rows, one text bucket per batch, padding rows of zero
 text and length 1), runs each batch through
 ``models.tacotron2.infer_batch_fused`` -- the hand-written encoder and
 decoder-chunk kernels on a CUDA device -- and resolves one future per
-request. Same API and semantics as the JAX package's ``serve.py``, with the
-model given as a ``Tacotron2`` module (or its state_dict) and an explicit
-``device``.
+request. A model in its int8 serving form (``quantize_for_serving``) goes
+through ``models.tacotron2.infer`` instead, the step-by-step decoder whose
+LSTM cells call the int8 kernel: the chunk kernels' packer takes only
+unquantized weights. ``VocoderRunner`` turns one mel into audio through the
+HiFi-GAN generator at bucketed lengths. Same API and semantics as the JAX
+package's ``serve.py``, with the model given as a module (or its
+state_dict) and an explicit ``device``.
 """
 
 from __future__ import annotations
@@ -21,22 +25,19 @@ import numpy as np
 import torch
 
 from tacotron2_tpu_torch.config import Tacotron2Config
-from tacotron2_tpu_torch.data.bucketing import text_bucket
+from tacotron2_tpu_torch.data.bucketing import mel_bucket, text_bucket
 from tacotron2_tpu_torch.kernels import decoder_batch as db
-from tacotron2_tpu_torch.models import tacotron2
+from tacotron2_tpu_torch.models import hifigan, tacotron2
 from tacotron2_tpu_torch.text import text_to_sequence
-
-INT8_NOT_PORTED = (
-    "int8-quantized LSTM weights (w_q) are not served by the port yet: the "
-    "int8 matmul kernel is still to be ported (ROADMAP.md, section B, "
-    "row 7 int8_matmul)")
 
 
 def _as_model(model, config: Tacotron2Config) -> tacotron2.Tacotron2:
+    """The module of a state_dict (quantized cells where its keys end in
+    ``w_q``), or the module itself."""
     if isinstance(model, Mapping):
-        if any(k.endswith("w_q") for k in model):
-            raise NotImplementedError(INT8_NOT_PORTED)
         module = tacotron2.Tacotron2(config)
+        if any(k.endswith("w_q") for k in model):
+            module = tacotron2.quantize_for_serving(module)
         module.load_state_dict(model, strict=True)
         return module
     return model
@@ -62,19 +63,21 @@ class BatchingSynthesizer:
         config.validate()
         self.config = (config.replace(prenet_dropout_at_inference=False)
                        if deterministic else config)
-        if self.device.type == "cuda":
+        self.model = _as_model(model, config).to(self.device).eval()
+        self.quantized = tacotron2.is_quantized(self.model)
+        if self.device.type == "cuda" and not self.quantized:
             for t in self.config.text_buckets:
                 reason = db.kernel_limits(self.config, t, self.device)
                 if reason is not None:
                     raise ValueError(f"decoder kernel cannot serve text "
                                      f"bucket {t}: {reason}")
-        self.model = _as_model(model, config).to(self.device).eval()
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self.max_steps = max_steps or config.max_decoder_steps
         # packed once: the layout is independent of the text bucket
         dtype = self.config.torch_compute_dtype
-        self._packed = db.pack_batch_decoder_params(self.model, dtype)
+        self._packed = (None if self.quantized else
+                        db.pack_batch_decoder_params(self.model, dtype))
         self._packed_lstm = tacotron2.pack_encoder_lstm(self.model, dtype)
         self._queue: "queue.Queue" = queue.Queue()
         self._closed = False
@@ -121,11 +124,18 @@ class BatchingSynthesizer:
         return items
 
     def _infer(self, text: np.ndarray, lengths: np.ndarray):
-        res = tacotron2.infer_batch_fused(
-            self.model, torch.from_numpy(text), torch.from_numpy(lengths),
-            self.config, packed=self._packed, packed_lstm=self._packed_lstm,
-            max_steps=self.max_steps,
-            device=self.device)
+        text, lengths = torch.from_numpy(text), torch.from_numpy(lengths)
+        if self.quantized:
+            cd = self.config.torch_compute_dtype
+            res = tacotron2.infer(
+                self.model, text, lengths, self.config,
+                max_steps=self.max_steps, device=self.device,
+                compute_dtype=None if cd == torch.float32 else cd)
+        else:
+            res = tacotron2.infer_batch_fused(
+                self.model, text, lengths, self.config, packed=self._packed,
+                packed_lstm=self._packed_lstm, max_steps=self.max_steps,
+                device=self.device)
         return (res.mel_postnet.cpu().numpy(), res.alignments.cpu().numpy(),
                 res.mel_lengths.cpu().numpy())
 
@@ -156,3 +166,44 @@ class BatchingSynthesizer:
                         future.set_exception(e)
                 if not isinstance(e, Exception):
                     raise
+
+
+class VocoderRunner:
+    """Neural mel -> waveform vocoding with mel-length bucketing: a request
+    is zero-padded to a multiple of ``bucket_step`` frames (capped at
+    ``max_frames``) and its audio trimmed back, so the vocoder sees a
+    bounded set of shapes. ``kind`` is ``"hifigan"``; ``vocoder`` its
+    ``models.hifigan.Generator`` or that module's state_dict."""
+
+    def __init__(self, kind: str,
+                 vocoder: Union[hifigan.Generator,
+                                Mapping[str, torch.Tensor]],
+                 vocoder_cfg: hifigan.HiFiGANConfig, *, max_frames: int,
+                 bucket_step: int = 128,
+                 device: Union[str, torch.device] = "cuda"):
+        if kind == "waveglow":
+            raise NotImplementedError(
+                "the WaveGlow vocoder is not ported yet (ROADMAP.md, "
+                "section A.2)")
+        if kind != "hifigan":
+            raise ValueError(f"unknown neural vocoder {kind!r}")
+        self.device = tacotron2.resolve_device(device)
+        self.kind = kind
+        if isinstance(vocoder, Mapping):
+            module = hifigan.Generator(vocoder_cfg)
+            module.load_state_dict(vocoder, strict=True)
+            vocoder = module
+        self.model = vocoder.to(self.device).eval()
+        self.cfg = vocoder_cfg
+        self.max_frames = max_frames
+        self.bucket_step = bucket_step
+        self.hop = vocoder_cfg.hop_length
+
+    def __call__(self, mel: np.ndarray) -> np.ndarray:
+        """(n_frames, n_mels) float mel -> (n_frames * hop,) float audio."""
+        n = mel.shape[0]
+        t_mel = mel_bucket(n, self.bucket_step, max(self.max_frames, n))
+        padded = torch.zeros(1, t_mel, mel.shape[1], device=self.device)
+        padded[0, :n] = torch.as_tensor(mel, dtype=torch.float32)
+        audio = hifigan.generator(self.model, padded, self.cfg)
+        return audio[0, :n * self.hop].cpu().numpy()

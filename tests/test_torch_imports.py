@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from tacotron2_tpu_torch.config import Tacotron2Config
+from tacotron2_tpu_torch.infer import synthesize
+from tacotron2_tpu_torch.models import hifigan
 from tacotron2_tpu_torch.models import tacotron2 as tm
-from tacotron2_tpu_torch.serve import BatchingSynthesizer
+from tacotron2_tpu_torch.serve import BatchingSynthesizer, VocoderRunner
+from tacotron2_tpu_torch.streaming import StreamingSynthesizer
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "tacotron2_tpu_torch"
@@ -41,6 +44,10 @@ def test_importing_every_module_loads_no_jax():
                          timeout=120).stdout.split()
     assert "tacotron2_tpu_torch.serve" in out
     assert "tacotron2_tpu_torch.kernels.decoder_batch" in out
+    for new in ("audio.filters", "audio.stft", "audio.mel", "infer",
+                "streaming", "models.hifigan", "kernels.decoder_step",
+                "kernels.int8_matmul", "kernels.mel_kernel"):
+        assert f"tacotron2_tpu_torch.{new}" in out
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -59,25 +66,50 @@ def test_no_jax_import_in_source(path):
         assert not any(_forbidden(n) for n in names), (path, names)
 
 
+HG = hifigan.HiFiGANConfig(
+    n_mel_channels=8, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
+    upsample_initial_channel=8, resblock_kernel_sizes=(3,),
+    resblock_dilation_sizes=((1,),))
+
+
 def test_entry_points_need_a_card_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     model = tm.Tacotron2(SMALL)
+    voc = hifigan.Generator(HG)
     text, lengths = torch.ones(1, 4, dtype=torch.long), torch.tensor([4])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        BatchingSynthesizer(model, SMALL)
-    for entry in (tm.infer, tm.infer_batch_fused):
+    makers = {
+        "BatchingSynthesizer": lambda **kw: BatchingSynthesizer(
+            model, SMALL, **kw).close(),
+        "StreamingSynthesizer": lambda **kw: StreamingSynthesizer(
+            model, SMALL, vocoder=voc, vocoder_cfg=HG, **kw),
+        "VocoderRunner": lambda **kw: VocoderRunner(
+            "hifigan", voc, HG, max_frames=8, **kw),
+        "synthesize": lambda **kw: synthesize(
+            model, ["hi"], SMALL, vocoder="none", max_steps=2, **kw),
+    }
+    for entry in (tm.infer, tm.infer_batch_fused, tm.infer_fused):
+        makers[entry.__name__] = lambda entry=entry, **kw: entry(
+            model, text, lengths, SMALL, max_steps=2, **kw)
+    for name, make in makers.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            entry(model, text, lengths, SMALL, max_steps=2)
-        entry(model, text, lengths, SMALL, max_steps=2, device="cpu")
-    synth = BatchingSynthesizer(model, SMALL, device="cpu")
-    synth.close()
+            make()
+        make(device="cpu")
 
 
 def test_int8_weights_are_refused():
-    sd = dict(tm.Tacotron2(SMALL).state_dict())
+    """A state_dict with int8 weights is served (it was refused until the
+    int8 kernel was ported); one whose ``w_q`` does not fit the config's
+    cells is still refused, by the strict load."""
+    model = tm.quantize_for_serving(tm.Tacotron2(SMALL))
+    sd = dict(model.state_dict())
+    synth = BatchingSynthesizer(sd, SMALL, device="cpu")
+    try:
+        assert synth.quantized
+    finally:
+        synth.close()
     sd["decoder.attention_rnn.w_q"] = torch.zeros(4, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8_matmul"):
+    with pytest.raises(RuntimeError, match="size mismatch"):
         BatchingSynthesizer(sd, SMALL, device="cpu")
 
 

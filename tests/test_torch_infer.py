@@ -1,0 +1,187 @@
+"""The port's one-utterance pipeline (tacotron2_tpu_torch/infer,
+``serve.VocoderRunner``) against the JAX package's ``infer.synthesize`` and
+``serve.VocoderRunner``, from the same weights.
+
+Tolerances at fp32: mel, gate and alignment at 1e-4 (up to 20 decoder steps
+and the postnet, sums in another order), HiFi-GAN audio at 1e-4 (a
+generator of order-1 gain on that mel; weights drawn at N(0, 0.3) so that
+the audio is of order 0.1). Griffin-Lim starts from a random phase that the
+two packages draw with different generators, so its audio is held against
+the port's own ``griffin_lim`` from the same seed, and its input, the
+linear magnitude, against the JAX package's formula at rtol 1e-3.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tacotron2_tpu import infer as jinfer
+from tacotron2_tpu import serve as jserve
+from tacotron2_tpu.audio import filters as jfilters
+from tacotron2_tpu.config import Tacotron2Config as JaxConfig
+from tacotron2_tpu.models import hifigan as jh
+from tacotron2_tpu.models import tacotron2 as jm
+
+from tacotron2_tpu_torch import infer
+from tacotron2_tpu_torch.audio.stft import STFTConfig, griffin_lim
+from tacotron2_tpu_torch.config import Tacotron2Config
+from tacotron2_tpu_torch.convert import (hifigan_state_dict_from_jax,
+                                         state_dict_from_jax)
+from tacotron2_tpu_torch.data.bucketing import mel_bucket
+from tacotron2_tpu_torch.kernels import decoder_step as ds
+from tacotron2_tpu_torch.models import hifigan as th
+from tacotron2_tpu_torch.models import tacotron2 as tm
+from tacotron2_tpu_torch.serve import VocoderRunner
+
+DIMS = dict(
+    n_symbols=148, symbols_embedding_dim=32, encoder_embedding_dim=32,
+    encoder_n_convolutions=2, attention_rnn_dim=40, decoder_rnn_dim=48,
+    prenet_dim=16, attention_dim=24, attention_location_n_filters=8,
+    attention_location_kernel_size=15, postnet_embedding_dim=32,
+    postnet_n_convolutions=3, n_mel_channels=20, max_decoder_steps=20,
+    gate_threshold=0.99, compute_dtype="float32", filter_length=256,
+    hop_length=16, win_length=256, sampling_rate=8000, mel_fmax=4000.0)
+HG = dict(n_mel_channels=20, upsample_rates=(4, 4),
+          upsample_kernel_sizes=(8, 8), upsample_initial_channel=16,
+          resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),))
+TEXTS = ["Hello world.", "Hi."]
+
+
+@pytest.fixture(scope="module")
+def world():
+    class W:
+        pass
+    w = W()
+    w.jcfg, w.tcfg = JaxConfig(**DIMS), Tacotron2Config(**DIMS)
+    w.params, w.stats = jm.init_params(jax.random.PRNGKey(0), w.jcfg)
+    w.model = tm.Tacotron2(w.tcfg)
+    w.model.load_state_dict(state_dict_from_jax(w.params, w.stats, w.tcfg))
+    w.jhg, w.thg = jh.HiFiGANConfig(**HG), th.HiFiGANConfig(**HG)
+    rng = np.random.RandomState(1)
+    w.gparams = jax.tree.map(
+        lambda p: jnp.asarray(rng.randn(*p.shape).astype(np.float32) * 0.3
+                              / np.sqrt(max(p.size // p.shape[-1], 1))),
+        jh.init_generator(jax.random.PRNGKey(1), w.jhg))
+    w.voc = th.Generator(w.thg)
+    w.voc.load_state_dict(hifigan_state_dict_from_jax(w.gparams, w.thg))
+    return w
+
+
+def check(got, want, audio_atol=None):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.mel.shape == w.mel.shape
+        np.testing.assert_allclose(g.mel, w.mel, atol=1e-4)
+        np.testing.assert_allclose(g.gate, w.gate, atol=1e-4)
+        np.testing.assert_allclose(g.alignment, w.alignment, atol=1e-4)
+        if audio_atol is None:
+            assert g.audio is None and w.audio is None
+        else:
+            assert g.audio.shape == w.audio.shape
+            assert np.abs(w.audio).max() > 1e-2
+            np.testing.assert_allclose(g.audio, w.audio, atol=audio_atol)
+
+
+def test_encode_texts_equals_jax(world):
+    ids, lengths = infer.encode_texts(TEXTS, world.tcfg)
+    jids, jlengths = jinfer.encode_texts(TEXTS, world.jcfg)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(jlengths))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("vocoder", ["none", "hifigan"])
+def test_synthesize_matches_jax(world, vocoder, fused):
+    texts = TEXTS[:1] if fused else TEXTS
+    calls = ds.decoder_step_chunk_plain.calls
+    got = infer.synthesize(world.model, texts, world.tcfg, vocoder=vocoder,
+                           vocoder_model=world.voc, vocoder_cfg=world.thg,
+                           fused=fused, device="cpu")
+    assert (ds.decoder_step_chunk_plain.calls > calls) == fused
+    want = jinfer.synthesize(world.params, world.stats, texts, world.jcfg,
+                             vocoder=vocoder, vocoder_params=world.gparams,
+                             vocoder_cfg=world.jhg, fused=fused)
+    check(got, want, 1e-4 if vocoder == "hifigan" else None)
+    assert got[0].mel.shape == (20, 20)
+
+
+def test_synthesize_griffin_lim(world):
+    got = infer.synthesize(world.model, TEXTS, world.tcfg,
+                           vocoder="griffin_lim", griffin_lim_iters=3,
+                           generator=None, device="cpu")
+    want = jinfer.synthesize(world.params, world.stats, TEXTS, world.jcfg,
+                             vocoder="griffin_lim", griffin_lim_iters=3)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.mel, w.mel, atol=1e-4)
+        assert g.audio.shape == w.audio.shape
+        assert np.isfinite(g.audio).all()
+    # the magnitude Griffin-Lim starts from, against the JAX package's
+    # formula; then the audio against the port's own griffin_lim from the
+    # default seed (no latch here: every row runs to the cap)
+    cfg = world.tcfg
+    res = tm.infer(world.model, *infer.encode_texts(TEXTS, cfg), cfg,
+                   device="cpu")
+    linear = infer.mel_to_linear(res.mel_postnet, cfg)
+    inv = np.linalg.pinv(jfilters.mel_filterbank(
+        cfg.sampling_rate, cfg.filter_length, cfg.n_mel_channels,
+        cfg.mel_fmin, cfg.mel_fmax))
+    ref = np.clip(np.einsum("btm,mf->bft", np.exp(res.mel_postnet.numpy()),
+                            inv.T), 0.0, None)
+    np.testing.assert_allclose(linear.numpy(), ref, rtol=1e-3, atol=1e-5)
+    audio = griffin_lim(linear, STFTConfig(256, 16, 256), n_iters=3)
+    np.testing.assert_allclose(got[1].audio, audio[1, :20 * 16].numpy(),
+                               atol=1e-6)
+
+
+def test_synthesize_on_a_quantized_model(world):
+    qmodel = tm.quantize_for_serving(world.model)
+    got = infer.synthesize(qmodel, TEXTS, world.tcfg, vocoder="none",
+                           device="cpu")
+    want = jinfer.synthesize(jm.quantize_for_serving(world.params),
+                             world.stats, TEXTS, world.jcfg, vocoder="none")
+    check(got, want)
+    with pytest.raises(ValueError, match="unquantized"):
+        infer.synthesize(qmodel, TEXTS[:1], world.tcfg, vocoder="none",
+                         fused=True, device="cpu")
+
+
+def test_what_is_not_ported_says_so(world):
+    for call in (
+            lambda: infer.synthesize(world.model, TEXTS, world.tcfg,
+                                     vocoder="waveglow", device="cpu"),
+            lambda: infer.Denoiser(None, None),
+            lambda: VocoderRunner("waveglow", world.voc, world.thg,
+                                  max_frames=64, device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, section A.2"):
+            call()
+    with pytest.raises(ValueError, match="unknown vocoder"):
+        infer.synthesize(world.model, TEXTS, world.tcfg, vocoder="wavenet",
+                         device="cpu")
+    with pytest.raises(ValueError, match="unknown neural vocoder"):
+        VocoderRunner("wavenet", world.voc, world.thg, max_frames=64,
+                      device="cpu")
+    with pytest.raises(ValueError, match="B=1 deterministic"):
+        infer.synthesize(world.model, TEXTS, world.tcfg, fused=True,
+                         device="cpu")
+
+
+@pytest.mark.parametrize("n,step,max_frames,bucket", [
+    (5, 8, 64, 8), (8, 8, 64, 8), (19, 8, 16, 19), (70, 32, 64, 70)])
+def test_vocoder_runner_pads_to_a_bucket_and_trims(world, n, step,
+                                                   max_frames, bucket):
+    assert mel_bucket(n, step, max(max_frames, n)) == bucket
+    mel = np.random.RandomState(n).randn(n, 20).astype(np.float32)
+    run = VocoderRunner("hifigan", world.voc.state_dict(), world.thg,
+                        max_frames=max_frames, bucket_step=step, device="cpu")
+    got = run(mel)
+    assert got.shape == (n * 16,)
+    want = jserve.VocoderRunner("hifigan", world.gparams, world.jhg,
+                                max_frames=max_frames, bucket_step=step)(mel)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    padded = np.zeros((1, bucket, 20), np.float32)
+    padded[0, :n] = mel
+    full = th.generator(world.voc, torch.from_numpy(padded), world.thg)
+    np.testing.assert_array_equal(got, full[0, :n * 16].numpy())

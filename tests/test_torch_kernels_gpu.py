@@ -4,7 +4,9 @@ card (marker ``gpu``; each test skips without a CUDA device).
 This file imports nothing of JAX, so it runs where only the port is
 installed: ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``. The
 plain versions are held against the JAX package on the CPU by
-tests/test_torch_encoder_lstm.py and tests/test_torch_decoder_batch.py.
+tests/test_torch_encoder_lstm.py, tests/test_torch_decoder_batch.py,
+tests/test_torch_decoder_step.py, tests/test_torch_int8.py and
+tests/test_torch_audio.py.
 
 Tolerances. Decoder chunk: each output and carry field within its own
 share of its largest |value| (DEC_REL), about ten times the worst reading
@@ -12,18 +14,30 @@ of that field on the card, so that attention weights of ~1/T are held as
 tightly as mel values; the kernel and its plain version share every cast
 point and differ only in the order of fp32 sums. Encoder: fp32 1e-4 absolute; bf16 3e-2
 absolute (one bf16 rounding flip of an operand, 2^-8 relative, carried
-through a few steps of the recurrence). TF32 is off for the plain versions'
-products.
+through a few steps of the recurrence). Single-utterance decoder chunk: as
+the batched one, with its own table (STEP_REL). int8 product: 1e-5 of the
+output's largest value (exact products, fp32 sums in another order). Mel
+kernel: 1e-4 in the log domain (fp32 sums of 1024 and 513 terms in another
+order; the log turns a relative error into an absolute one). TF32 is off
+for the plain versions' products.
 """
+
+import importlib
 
 import pytest
 import torch
 
+from tacotron2_tpu_torch.audio.mel import MelConfig
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.kernels import decoder_batch as db
+from tacotron2_tpu_torch.kernels import decoder_step as ds
 from tacotron2_tpu_torch.kernels import encoder_lstm as el
 from tacotron2_tpu_torch.kernels.lstm_layout import to_blocks
+from tacotron2_tpu_torch.kernels import mel_kernel as mk
 from tacotron2_tpu_torch.models import tacotron2 as tm
+
+# the package exports a function ``int8_matmul`` that hides the module
+i8 = importlib.import_module("tacotron2_tpu_torch.kernels.int8_matmul")
 
 CFG = Tacotron2Config(
     n_symbols=40, symbols_embedding_dim=128, encoder_embedding_dim=128,
@@ -45,6 +59,19 @@ DEC_REL = {
                         h2=3e-6, c2=2e-6, w=3e-6, wc=3e-6, ctx=3e-6,
                         prev=5e-6),
 }
+# Single-utterance decoder chunk, the same measure: about ten times the
+# worst reading on the card over these cases and chip_smoke.py's full-width
+# chunks (the same table).
+STEP_REL = {
+    torch.bfloat16: dict(mel=1e-2, gate=3e-1, align=2e-2, h1=1e-2, c1=1e-2,
+                         h2=5e-3, c2=5e-3, w=2e-2, wc=2e-3, ctx=3e-3,
+                         prev=1e-2),
+    torch.float32: dict(mel=2e-5, gate=2e-4, align=2e-5, h1=1e-5, c1=1e-5,
+                        h2=1e-5, c2=1e-5, w=2e-5, wc=1e-5, ctx=2e-5,
+                        prev=2e-5),
+}
+INT8_REL = 1e-5
+MEL_LOG_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -321,3 +348,135 @@ def test_train_step_on_card_matches_cpu(cuda):
         scale = max(float(gc[k].abs().max()), 1e-3)
         err = float((gg[k].cpu() - gc[k]).abs().max())
         assert err <= 1e-4 * scale, (k, err / scale)
+
+
+# ------------------------------------------- the single-utterance kernels
+
+def step_case(device, dtype, T, cs, r, dropout):
+    """A ``cs``-step chunk of one row at encoder length T (the last 5
+    positions masked) from a zero carry: (fp, args, kwargs)."""
+    cfg = CFG.replace(gate_threshold=0.3, n_frames_per_step=r)
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0)).to(device)
+    fp = ds.pack_decoder_params(model, dtype)
+    g = torch.Generator(device=device).manual_seed(2)
+    mem = torch.randn(1, T, 128, generator=g, device=device) * 0.5
+    proc = torch.randn(1, T, 128, generator=g, device=device) * 0.5
+    if dtype == torch.bfloat16:  # processed memory holds bf16 values
+        proc = proc.to(dtype).float()
+    mask = torch.arange(T, device=device)[None] < T - 5
+    mem, proc, emask = ds.attention_inputs(mem, proc, mask)
+    n, p = fp.pre1.shape
+    kp = (None, None)
+    if dropout:
+        kp = tuple((torch.rand(cs, 1, p, generator=g, device=device) < 0.5
+                    ).float() for _ in range(2))
+    kw = dict(t0=3, chunk_steps=cs, gate_logit=-0.5, kp1=kp[0], kp2=kp[1])
+    return (fp, zero_carry(1, T, n, device), mem, proc, emask), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,cs,r,dropout", [(37, 16, 1, False),
+                                            (64, 32, 2, True),
+                                            (190, 7, 1, False)])
+def test_decoder_step_kernel_matches_plain(cuda, dtype, T, cs, r, dropout):
+    """Every output and carry field, after the latch too; finished and
+    lengths exactly; perturbed attention is rejected; the input carry is
+    left as it was."""
+    args, kw = step_case(cuda, dtype, T, cs, r, dropout)
+    before = [x.clone() for x in args[1]]
+    launches = ds.decoder_step_chunk.launches
+    got = ds.decoder_step_chunk(*args, **kw)
+    assert ds.decoder_step_chunk.launches == launches + 1
+    want = ds.decoder_step_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_chunks_close(got, want, STEP_REL[dtype])
+    for bad in perturbed(got):
+        with pytest.raises(AssertionError):
+            assert_chunks_close(bad, want, STEP_REL[dtype])
+    assert all(torch.equal(a, b) for a, b in zip(args[1], before))
+
+
+@pytest.mark.gpu
+def test_decoder_step_kernel_rejects_what_it_does_not_take(cuda):
+    (fp, carry, mem, proc, emask), kw = step_case(cuda, torch.bfloat16, 20,
+                                                  4, 1, False)
+    with pytest.raises(ValueError, match="mem"):   # memory must be fp32
+        ds.decoder_step_chunk(fp, carry, mem.bfloat16(), proc, emask, **kw)
+    with pytest.raises(ValueError, match="k2"):    # the batched chunk's pack
+        ds.decoder_step_chunk(fp._replace(k2=fp.k2.bfloat16()), carry, mem,
+                              proc, emask, **kw)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ds.decoder_step_chunk(fp, carry._replace(h1=carry.h1.cpu()), mem,
+                              proc, emask, **kw)
+
+
+# the JAX package's test shapes, the two decoder cells at B=1, more than 8
+# rows, and edges ragged in K and N (N not a multiple of 8: byte loads)
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,N", [(1, 256, 512), (8, 1792, 4096),
+                                   (3, 100, 83), (1, 1792, 4096),
+                                   (1, 2560, 4096), (19, 257, 40),
+                                   (2, 33, 7), (5, 64, 33)])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_matches_plain(cuda, B, K, N, xdtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(B, K, generator=g, device=cuda).to(xdtype)
+    w = torch.randn(K, N, generator=g, device=cuda) * 0.05
+    w_q, scale = (t.to(cuda) for t in i8.quantize_int8(w))
+    launches = i8.int8_matmul.launches
+    got = i8.int8_matmul(x, w_q, scale)
+    assert i8.int8_matmul.launches == launches + 1
+    want = i8.int8_matmul_plain(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (B, N) and got.dtype == torch.float32
+    scale_ = float(want.abs().max())
+    assert float((got - want).abs().max()) <= INT8_REL * scale_
+    # one column's scale off by 5% must show
+    bad = got.clone()
+    bad[:, N // 2] *= 1.05
+    assert float((bad - want).abs().max()) > INT8_REL * scale_
+
+
+@pytest.mark.gpu
+def test_int8_kernel_rejects_mixed_devices(cuda):
+    w_q, scale = i8.quantize_int8(torch.ones(4, 8))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        i8.int8_matmul(torch.ones(1, 4, device=cuda), w_q, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        i8.int8_matmul(torch.ones(1, 4, device=cuda),
+                       w_q.t().contiguous().t().to(cuda), scale.to(cuda))
+
+
+# whole tiles of 64 frames, a ragged last tile, fewer frames than a tile,
+# and a narrow config whose depth is no multiple of the staged chunk
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,cfg", [
+    (2, 127 * 256, MelConfig()), (3, 10000, MelConfig()),
+    (1, 700, MelConfig()),
+    (2, 3000, MelConfig(filter_length=200, hop_length=50, win_length=160,
+                        n_mel_channels=20, sampling_rate=8000,
+                        mel_fmax=4000.0))])
+def test_mel_kernel_matches_plain(cuda, B, S, cfg):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    y = (torch.rand(B, S, generator=g, device=cuda) * 2 - 1) * 0.3
+    y[0] *= 1e-4   # a quiet row: most mels near the 1e-5 floor
+    launches = mk.mel_spectrogram_fused.launches
+    got = mk.mel_spectrogram_fused(y, cfg)
+    assert mk.mel_spectrogram_fused.launches == launches + 1
+    want = mk.mel_spectrogram_fused_plain(y, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, cfg.n_mel_channels,
+                                       1 + S // cfg.hop_length)
+    assert float((got - want).abs().max()) <= MEL_LOG_ATOL
+    shifted = torch.roll(got, 1, dims=2)   # frames off by one must show
+    assert float((shifted - want).abs().max()) > MEL_LOG_ATOL
+
+
+@pytest.mark.gpu
+def test_mel_kernel_rejects_what_it_does_not_take(cuda):
+    y = torch.zeros(1, 4000, device=cuda)
+    with pytest.raises(ValueError, match="128 mel"):
+        mk.mel_spectrogram_fused(y, MelConfig(n_mel_channels=160))
+    with pytest.raises(ValueError, match="shared memory"):
+        mk.mel_spectrogram_fused(y, MelConfig(hop_length=1024))
