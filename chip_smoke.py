@@ -29,8 +29,8 @@ on failure:
    batched chunk's entry called at B=1; the int8 product at the two decoder
    cells' shapes (B=1 and 8, and ragged shapes), timed beside
    ``torch.matmul`` on a bf16 copy dequantised ahead of time; the fused mel
-   kernel on 16 waveforms of 6 s (and ragged lengths), timed beside the two
-   ``torch.matmul`` form;
+   kernel (its DFT as three TF32 tensor-core products) on 16 waveforms of
+   6 s (and ragged lengths), timed beside the two ``torch.matmul`` form;
 7. one utterance to audio: ``infer.synthesize([text], fused=True)`` with the
    full V1 HiFi-GAN generator and with Griffin-Lim (max_steps=200), the same
    text on ``quantize_for_serving`` weights through the step-by-step decoder,
@@ -41,8 +41,10 @@ on failure:
    card against the CPU plain path;
 8. the training kernels at bench.py's shape (B=128, T_in=128, bf16): the
    decoder forward scan and backward chain against their plain versions
-   over 64 and 512 steps, the encoder BiLSTM forward and backward at B=128,
-   each field within its limit and perturbed outputs rejected;
+   over 64 steps (also at T_in 64 and 192) and 512 steps, the backward's
+   accumulators bit-identical between two runs, the encoder BiLSTM forward
+   and backward at B=128, each field within its limit and perturbed outputs
+   rejected;
 9. training: ``train_step`` at B=128, T_in=128, T_out=512, bf16 (one warm
    step, three timed): every training kernel must launch and no plain
    version run; a breakdown by stage and a profile of one step;
@@ -89,9 +91,11 @@ from tacotron2_tpu_torch.training import state as tstate
 i8 = importlib.import_module("tacotron2_tpu_torch.kernels.int8_matmul")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
-# is max(bytes / HBM rate, FLOPs / peak for its operand type).
+# is max(bytes / HBM rate, FLOPs / peak for its operand type). "tf32x3" is
+# an fp32 product taken as three TF32 products (the mel kernel's DFT): the
+# TF32 rate over three.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 
 ENC_TOL = (3e-2, 5e-2)     # (atol, rtol): bf16 operand rounding flips
 # Decoder chunk, kernel against its plain version: the largest |err| of
@@ -185,9 +189,13 @@ def field_err(got, want):
     return diff, diff / scale if scale > 0 else diff
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops, dtype: str = ""):
+    """(bound ms, "bytes" or "operations"); flops is a count at the rate of
+    ``dtype``, or {rate: count} for work at several rates."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    if not isinstance(flops, dict):
+        flops = {dtype: flops}
+    t_ops = sum(f / PEAK_FLOPS[k] for k, f in flops.items())
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, by
 
@@ -774,20 +782,29 @@ def mel_phase(cfg, dev, card):
                                  mc.n_mel_channels)
         nbytes = 4 * (B * S + 2 * n_fft * n_bins + n_bins * n_mels
                       + B * n_mels * T)
-        flops = 2.0 * B * T * (2 * n_fft * n_bins + n_bins * n_mels)
-        bound_ms, bound_by = bound(nbytes, flops, "float32")
+        # the DFT at the 3xTF32 rate, the mel product at the fp32 rate
+        rates = {"tf32x3": 2.0 * B * T * 2 * n_fft * n_bins,
+                 "float32": 2.0 * B * T * n_bins * n_mels}
+        bound_ms, bound_by = bound(nbytes, rates)
         print(f"mel [{card}] B={B} samples={S} ({T} frames) fp32: max |err| "
               f"{err:.3e} in the log domain (limit {MEL_LOG_ATOL}); kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, audio.mel."
               f"mel_spectrogram (two torch.matmul) {library_ms:.4f} ms, bound"
-              f" {bound_ms:.5f} ms ({bound_by})")
+              f" {bound_ms:.5f} ms ({bound_by}: the DFT at tf32x3, "
+              f"{PEAK_FLOPS['tf32x3'] / 1e12:.0f} TFLOP/s, the mel product "
+              f"at float32); share of the bound {bound_ms / ms:.1%}")
+        if ms > library_ms:
+            print(f"mel [{card}] note: the kernel ({ms:.4f} ms) is slower "
+                  f"than the library call ({library_ms:.4f} ms)")
         res = {"name": "mel_spectrogram_fused", "route": "cuda",
                "source": "tacotron2_tpu_torch/kernels/csrc/mel_kernel.cu",
                "replaces": "tacotron2_tpu/kernels/mel_kernel.py:34",
                "max_abs_err": err,
                "tolerance": {"log_domain_atol": MEL_LOG_ATOL},
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms,
+               "bound_by": bound_by,
+               "bound_rates": "DFT at tf32x3 (495/3 TFLOP/s), mel product "
+                              "at float32", "library_ms": library_ms,
                "library": "audio.mel.mel_spectrogram (two torch.matmul)"}
     return res
 
@@ -1119,8 +1136,8 @@ def _scan_work(sw, B, T_in, steps, n_filters, keep):
     per multiply-add) with the location term as the model states it, conv
     then dense. The backward counts the two transposed LSTM products, the
     rebuilt query and energies, the query, context and location backward."""
-    A, D = sw.wq.shape[0], sw.wtd.shape[0] // 4
-    K1, K2 = sw.wta.shape[1], sw.wtd.shape[1]
+    A, D = sw.wq.shape[0], sw.b2.shape[0] // 4
+    K1, K2 = sw.w1.shape[1], sw.w2.shape[1]
     E = K2 - A - D
     P = K1 - E - A
     ks, _, datt = sw.k2.shape
@@ -1135,7 +1152,8 @@ def _scan_work(sw, B, T_in, steps, n_filters, keep):
              + sb * P * w + per_batch + B * T_in * 4 + keep_b + res_b)
     fwd_macs = (K1 * 4 * A + K2 * 4 * D + A * datt + loc + T_in * datt
                 + T_in * E)
-    bwd_b = (size(sw.wta, sw.wtd, sw.wq, sw.wqt, sw.k2, sw.vf) + per_batch
+    bwd_b = ((4 * A * K1 + 4 * D * K2 + 2 * A * datt) * w
+             + size(sw.k2, sw.vf) + per_batch
              + res_b + sb * (D + E + T_in) * 4 + keep_b
              + sb * ((4 * A + 4 * D + E) * w + (P + datt) * 4)
              + B * T_in * datt * 4 + (ks * 2 * datt + datt) * 4)
@@ -1145,27 +1163,29 @@ def _scan_work(sw, B, T_in, steps, n_filters, keep):
 
 
 def scan_phase(model, cfg, dev, card):
-    """Rows 1 and 2 at bench width (B=128, T_in=128, bf16, dropout on):
-    field by field over 64 steps, with perturbed outputs rejected; then
-    both over the full 512 steps, held and timed, the backward from the
-    plain forward's residuals."""
-    B, T_in = TRAIN_SHAPE["B"], TRAIN_SHAPE["T_in"]
+    """Rows 1 and 2 at bench width (B=128, bf16, dropout on): field by
+    field over 64 steps at T_in 128 (with perturbed outputs rejected), 64
+    and 192; then both over the full 512 steps at T_in 128, held and timed,
+    the backward from the plain forward's residuals."""
+    B = TRAIN_SHAPE["B"]
     fwd_names, bwd_names = ts.Residuals._fields, ts.ChainGrads._fields
     out = {}
-    for steps, seed in ((64, 21), (TRAIN_SHAPE["T_out"], 22)):
+    for T_in, steps, seed in ((TRAIN_SHAPE["T_in"], 64, 21), (64, 64, 23),
+                              (192, 64, 24),
+                              (TRAIN_SHAPE["T_in"], TRAIN_SHAPE["T_out"], 22)):
         sw, inp, kw, cots = _scan_inputs(model, cfg, dev, B, T_in, steps,
                                          seed)
         got = ts.forward_residuals(sw, *inp, **kw)
         want = ts.forward_residuals_plain(sw, *inp, **kw)
         torch.cuda.synchronize()
-        ferr = check_fields(f"scan forward, {steps} steps", got, want,
-                            fwd_names, SCAN_FWD_REL)
+        ferr = check_fields(f"scan forward, T_in {T_in}, {steps} steps", got,
+                            want, fwd_names, SCAN_FWD_REL)
         args = (sw, want, inp[1], inp[2], *cots)
         gk = ts.backward_chain(*args, **kw)
         gp = ts.backward_chain_plain(*args, **kw)
         torch.cuda.synchronize()
-        berr = check_fields(f"scan backward, {steps} steps", gk, gp,
-                            bwd_names, SCAN_BWD_REL)
+        berr = check_fields(f"scan backward, T_in {T_in}, {steps} steps", gk,
+                            gp, bwd_names, SCAN_BWD_REL)
         for label, errs in (("forward", ferr), ("backward", berr)):
             print(f"train scan [{card}] {label} B={B} T_in={T_in} {steps} "
                   f"steps bf16: max |err| by field, as a share of the "
@@ -1173,13 +1193,20 @@ def scan_phase(model, cfg, dev, card):
                       f"{k} {r:.2e} ({lim[k]})" for k, (_, r) in errs.items()
                       for lim in [SCAN_FWD_REL if label == "forward"
                                   else SCAN_BWD_REL]))
-        if steps == 64:
+        if seed == 21:
             must_reject("attention w shifted one position",
                         got._replace(w=torch.roll(got.w, 1, dims=2)), want,
                         fwd_names, SCAN_FWD_REL)
             must_reject("d_processed x 1.05",
                         gk._replace(d_processed=gk.d_processed * 1.05), gp,
                         bwd_names, SCAN_BWD_REL)
+            again = ts.backward_chain(*args, **kw)
+            for name in ("d_k2", "d_v", "d_processed", "dga", "d_q"):
+                if not torch.equal(getattr(again, name), getattr(gk, name)):
+                    fail(f"scan backward: {name} differs between two runs")
+            print(f"train scan [{card}] backward B={B}: d_k2, d_v, "
+                  f"d_processed, dga and d_q bit-identical in two runs")
+        if steps != TRAIN_SHAPE["T_out"]:
             continue
         fwd_ms = cuda_ms(lambda: ts.forward_residuals(sw, *inp, **kw),
                          iters=2, warmup=0)
@@ -1192,13 +1219,25 @@ def scan_phase(model, cfg, dev, card):
         (fb, ff), (bb, bf) = _scan_work(sw, B, T_in, steps,
                                         cfg.attention_location_n_filters,
                                         True)
+        # what the backward must touch every step, whatever it keeps: both
+        # LSTMs' weights, mem and proc read, d_processed read and written
+        A, D = sw.wq.shape[0], sw.b2.shape[0] // 4
+        E, datt = inp[1].shape[2], sw.k2.shape[2]
+        step_b = (2 * (4 * A * sw.w1.shape[1] + 4 * D * sw.w2.shape[1])
+                  + B * T_in * (2 * E + 2 * datt + 8 * datt))
+        floor_ms = steps * step_b / HBM_BYTES_PER_S * 1e3
         for name, line, errs, ms, plain, (nb, nf) in (
                 ("train_scan_fwd", 354, ferr, fwd_ms, fwd_plain, (fb, ff)),
                 ("train_scan_bwd", 619, berr, bwd_ms, bwd_plain, (bb, bf))):
             bound_ms, bound_by = bound(nb, nf, "bfloat16")
+            extra = ""
+            if name == "train_scan_bwd":
+                extra = (f"; per-step floor {step_b / 1e6:.1f} MB touched a "
+                         f"step, {floor_ms:.4f} ms at the HBM rate")
             print(f"train scan [{card}] {name} B={B} T_in={T_in} {steps} "
                   f"steps bf16 with dropout: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+                  f"{plain:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
+                  + extra)
             out[name] = {
                 "name": name, "route": "cuda",
                 "source": "tacotron2_tpu_torch/kernels/csrc/train_scan.cu",
@@ -1208,6 +1247,7 @@ def scan_phase(model, cfg, dev, card):
                               if name.endswith("fwd") else SCAN_BWD_REL},
                 "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
+        out["train_scan_bwd"]["floor_ms"] = floor_ms
         del got, want, gk, gp, args
     return out["train_scan_fwd"], out["train_scan_bwd"]
 

@@ -40,26 +40,37 @@
 // What bounds it on the H100: at B = 128 each step's LSTM products are real
 // GEMMs (128 x 1792 @ 1792 x 4096 and 128 x 2560 @ 2560 x 4096 forward, the
 // transposed ones backward, ~4.6 GFLOP per step), so the contract bound is
-// operations on the tensor cores. This first design computes them on CUDA
-// cores in fp32 (gate_product: each weight element read from L2 feeds 8
-// rows), two orders of magnitude above that bound; mma/wgmma tiles are
-// later work.
+// operations on the tensor cores; below it lies a floor of bytes that every
+// step must touch whatever it keeps: both LSTMs' weights (36 MB in bf16),
+// mem and proc read and d_processed read and written (~38 MB at T_in 128).
 //
-// Design: a few plain launches per step from a host loop inside each C
-// entry point. Forward: scan_lstm_kernel (blocks own TS_UNITS hidden units
-// and all four gate columns x 8 rows, weights block-major), the query, the
+// Forward design (unchanged since it was written): a few plain launches
+// per step from a host loop inside the C entry point: scan_lstm_kernel
+// (blocks own TS_UNITS hidden units and all four gate columns x 8 rows,
+// weights block-major, products on CUDA cores in fp32), the query, the
 // serving chunk's energy and softmax/context kernels, scan_lstm_kernel.
-// Backward: lstm_gates_bwd_kernel, tile_product_kernel (transposed weights
-// column-tiled), attn_bwd_kernel (one block per row does the context,
-// softmax, energy and attention-LSTM backward for its row), the second
-// product, and the fixed-order sums of the rows' d_K2 and d_v. Every
-// accumulator is deterministic: d_processed element (b, t, d) belongs to one
-// thread of row b's block at every step; d_K2 and d_v are summed from the
-// rows' partials in a fixed order.
+//
+// Backward design. At bf16 (the training path) the chain runs on the
+// tensor cores, six launches a step (see the "backward, bf16" section):
+// the two transposed LSTM products as one bf16 mma.sync product over all
+// rows, the weights read once a step and K split into slices so that the
+// column tiles fill the SMs (tc_product.cuh); the attention backward cut
+// along T_in into (32 positions x 2 rows) blocks whose location products
+// (the energy rebuild, d_K2 and the window cotangents) are bf16 mma.sync
+// products; dh1's W(dq) @ wq^T one product over all rows with the cell
+// backward in its epilogue. At fp32 (the step check) the first design
+// stays: lstm_gates_bwd_kernel, tile_product_kernel (CUDA cores),
+// attn_bwd_kernel (one block per row), the second product and the
+// fixed-order sums of the rows' d_K2 and d_v. Every accumulator is
+// deterministic: no floating-point atomics; an element of d_processed
+// belongs to one thread at every step; the products' K slices, the tiles'
+// partials of dq and the window cotangents, and the blocks' d_K2 and d_v
+// are added in a fixed order, so two runs give the same bits.
 #include <math.h>
 
 #include "attention.cuh"
 #include "lstm_cell.cuh"
+#include "tc_product.cuh"
 
 #define TS_UNITS 8        // hidden units per scan_lstm_kernel block
 #define TS_THREADS 1024   // scan_lstm_kernel and scan_query_kernel blocks
@@ -255,7 +266,7 @@ struct AttnBwd {
   const W* proc;          // (B, Ti, datt)
   const W* atth;          // (B, A) att_h[t]
   const W* wq;            // (A, datt)
-  const W* wqt;           // (datt, A)
+  const W* wqt;           // wq^T (datt, A), column-tiled
   const W* k2;            // (ks, 2, datt)
   const float* vf;        // (datt,) fp32 v
   const float* w_t;       // (B, Ti) w[t]
@@ -435,7 +446,9 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_kernel(AttnBwd<W> a) {
   for (int u = tid; u < A; u += AB_THREADS) {
     float attn = 0.0f;
     for (int dd = 0; dd < datt; ++dd)
-      attn = fmaf(rnd<W>(dqs[dd]), to_f<W>(a.wqt[(size_t)dd * A + u]), attn);
+      attn = fmaf(rnd<W>(dqs[dd]),
+                  to_f<W>(a.wqt[((size_t)(u >> 5) * datt + dd) * 32 + (u & 31)]),
+                  attn);
     float dh = dxa ? dxa[a.P + E + u] : 0.0f;
     dh = dh + dxd[u];
     dh = dh + attn;
@@ -462,8 +475,598 @@ __global__ void accumulate_parts(const float* __restrict__ part, int nparts,
   acc[i] += s;
 }
 
+// ------------------------------------------- backward, bf16: tensor cores
+//
+// The chain of W = __nv_bfloat16, per step (six launches, no atomics):
+//   bwd_gates_kernel    decoder-LSTM cell backward -> dgd[t]
+//   tc_product          dxd = dgd[t] @ w2^T in K slices, added in slice
+//                       order by the last block of each tile (tc_product.cuh)
+//   attn_rows_kernel    per row: dctx, the window cotangents of the later
+//                       step (summed from its tiles' partials), dw, the
+//                       softmax sum -> de
+//   attn_tiles_kernel   per (32 positions, AB_RB rows): the energies
+//                       rebuilt as an im2col product, dm, d_processed,
+//                       the partials of dq, d_v and d_K2 and the window
+//                       cotangents' partials; three bf16 mma products
+//   attn_lstm_kernel    dh1 = carry + dxd[:, :A] + W(dq) @ wq^T as one
+//                       tensor-core product over all rows, then the
+//                       attention-LSTM cell backward -> dga[t]
+//   tc_product          dxa = dga[t] @ w1^T in K slices; its first P
+//                       columns go straight to d_prenet[t]
+// and, once, the query of every step (att_h @ wq) before the loop and the
+// fixed-order sums of the d_K2 and d_v partials after it.
+
+#define AB_TT 32      // encoder positions per attn_tiles_kernel block
+#define AB_RB 2       // rows per attn_tiles_kernel block
+#define AB_KC 64      // 2 * ks taps, padded: the im2col depth
+#define AB_DMAX 128   // widest attention the tiles kernel takes
+#define ROW_THREADS 512
+#define TILE_THREADS 256
+#define LSTM_ROWS 32  // rows per attn_lstm_kernel block
+#define LSTM_COLS 32  // units per attn_lstm_kernel block
+#define LSTM_THREADS 128
+
+typedef __nv_bfloat16 bf16;
+
+struct TcChain {
+  int sd, sa;      // K slices of the two products
+  int nt, nrg;     // position tiles, row groups of attn_tiles_kernel
+  int wl;          // window partial length, AB_TT + 2 pad
+  float *dxd_p, *dxa_p, *dxd, *dxa, *q, *de, *c_dwc, *wpart, *dq, *dac,
+      *ddc, *k2acc, *dvacc;
+  int* count;      // the products' tile counters
+};
+
+// Carve the bf16 chain's scratch (floats) from `base` (null: count only);
+// returns the number of floats.
+static size_t carve_tc(TcChain* c, float* base, int sms, int B, int T,
+                       int Ti, int P, int E, int A, int D, int datt, int ks) {
+  const int NO_D = A + E + D, NO_A = P + E + A;
+  c->sd = tc_slices(B, NO_D, 4 * D, sms);
+  c->sa = tc_slices(B, NO_A, 4 * A, sms);
+  c->nt = (Ti + AB_TT - 1) / AB_TT;
+  c->nrg = (B + AB_RB - 1) / AB_RB;
+  c->wl = AB_TT + ks - 1;
+  const size_t nblk = (size_t)c->nt * c->nrg;
+  const size_t ncount = tc_tiles(B, NO_D) + tc_tiles(B, NO_A);
+  const size_t sizes[] = {
+      (size_t)c->sd * B * NO_D, (size_t)c->sa * B * NO_A, (size_t)B * NO_D,
+      (size_t)B * NO_A, (size_t)T * B * datt, (size_t)B * Ti,
+      (size_t)B * Ti, (size_t)B * c->nt * 2 * c->wl,
+      (size_t)B * c->nt * datt, (size_t)B * A, (size_t)B * D,
+      nblk * 2 * ks * datt, nblk * datt, ncount};
+  float** ptrs[] = {&c->dxd_p, &c->dxa_p, &c->dxd, &c->dxa, &c->q, &c->de,
+                    &c->c_dwc, &c->wpart, &c->dq, &c->dac, &c->ddc,
+                    &c->k2acc, &c->dvacc, (float**)&c->count};
+  size_t off = 0;
+  for (int i = 0; i < 14; ++i) {
+    *ptrs[i] = base ? base + off : nullptr;
+    off += (sizes[i] + 3) / 4 * 4;   // 16-byte aligned pieces
+  }
+  return off;
+}
+
+struct GatesTc {
+  const bf16* g;            // gd[t]
+  const float *c_new, *c_prev;
+  const float* dh_in;       // d_dec_h[t]
+  const unsigned char* keep;
+  float scale;
+  float* dc;
+  bf16* dg;                 // dgd[t]
+  const float* dxd;         // the later step's dxd, or null at the start
+  int B, D, A, E;
+};
+
+// Decoder-LSTM gate backward of step t, one thread per (row, unit).
+__global__ void bwd_gates_kernel(GatesTc a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int NO_D = a.A + a.E + a.D;
+  if (i < a.B * a.D) {
+    const int b = i / a.D, u = i % a.D;
+    float dh = 0.0f;
+    if (a.dxd) dh = a.dxd[(size_t)b * NO_D + a.A + a.E + u];
+    dh += a.dh_in[i];
+    if (a.keep) dh = dh * (a.keep[i] ? a.scale : 0.0f);
+    const bf16* g = a.g + (size_t)b * 4 * a.D;
+    float dg[4];
+    a.dc[i] = lstm_unit_bwd(to_f<bf16>(g[u]), to_f<bf16>(g[a.D + u]),
+                            to_f<bf16>(g[2 * a.D + u]),
+                            to_f<bf16>(g[3 * a.D + u]),
+                            a.c_prev ? a.c_prev[i] : 0.0f, a.c_new[i], dh,
+                            a.dc[i], dg);
+    bf16* o = a.dg + (size_t)b * 4 * a.D;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[q * a.D + u] = from_f<bf16>(dg[q]);
+  }
+}
+
+struct RowsTc {
+  const float *dxd, *dxa;   // this step's dxd, the later step's dxa (null
+                            //   at the start)
+  const float* dctx_o;      // (B, E) d_ctx[t]
+  const float* dalign;      // (B, Ti) d_align[t]
+  const bf16* mem;          // (B, Ti, E)
+  const float* w_t;         // (B, Ti) w[t]
+  const float* wpart;       // later step's window partials, or null
+  float* c_dwc;             // (B, Ti) carry
+  float* de;                // (B, Ti) out
+  bf16* dctx_st;            // (B, E) out: dctx[t] rounded
+  int B, Ti, P, E, A, D, nt, wl, pad;
+};
+
+// Per row: the context cotangent, dw and the softmax backward (stage a).
+__global__ void __launch_bounds__(ROW_THREADS) attn_rows_kernel(RowsTc a) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  constexpr int NW = ROW_THREADS / 32;
+  const int NO_D = a.A + a.E + a.D, NO_A = a.P + a.E + a.A;
+  float* dct = sm;            // E
+  float* dws = dct + a.E;     // Ti
+  float* red = dws + a.Ti;    // 32
+  const size_t rT = (size_t)b * a.Ti;
+  for (int e = tid; e < a.E; e += ROW_THREADS) {
+    float v = a.dxa ? a.dxa[(size_t)b * NO_A + a.P + e] : 0.0f;
+    v = v + a.dctx_o[(size_t)b * a.E + e];
+    v = v + a.dxd[(size_t)b * NO_D + a.A + e];
+    dct[e] = v;
+    a.dctx_st[(size_t)b * a.E + e] = from_f<bf16>(v);
+  }
+  // the later step's window cotangents, summed over its tiles in order
+  for (int j = tid; j < a.Ti; j += ROW_THREADS) {
+    float cdw = 0.0f, add = 0.0f;
+    if (a.wpart) {
+      for (int ti = 0; ti < a.nt; ++ti) {
+        const int jl = j - (ti * AB_TT - a.pad);
+        if (jl < 0 || jl >= a.wl) continue;
+        const float* wp = a.wpart + ((size_t)b * a.nt + ti) * 2 * a.wl;
+        cdw += wp[jl];
+        add += wp[a.wl + jl];
+      }
+    }
+    const float cdwc = a.c_dwc[rT + j] + add;
+    a.c_dwc[rT + j] = cdwc;
+    dws[j] = cdw + cdwc + a.dalign[rT + j];
+  }
+  __syncthreads();
+  // + dctx . mem[t]: a warp per 4 positions at a time, 8 bf16 a load
+  for (int j0 = 4 * warp; j0 < a.Ti; j0 += 4 * NW) {
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int e = 8 * lane; e < a.E; e += 256) {
+      uint4 raw[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        raw[p] = j0 + p < a.Ti ? *reinterpret_cast<const uint4*>(
+                                     a.mem + (rT + j0 + p) * a.E + e)
+                               : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const __nv_bfloat162* h =
+            reinterpret_cast<const __nv_bfloat162*>(&raw[p]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 mv = __bfloat1622float2(h[q]);
+          s[p] = fmaf(dct[e + 2 * q], mv.x, s[p]);
+          s[p] = fmaf(dct[e + 2 * q + 1], mv.y, s[p]);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float v = warp_sum(s[p]);
+      if (lane == 0 && j0 + p < a.Ti) dws[j0 + p] = dws[j0 + p] + v;
+    }
+  }
+  __syncthreads();
+  float part = 0.0f;
+  for (int j = tid; j < a.Ti; j += ROW_THREADS) part += a.w_t[rT + j] * dws[j];
+  const float ssum = block_sum<ROW_THREADS>(part, red);
+  for (int j = tid; j < a.Ti; j += ROW_THREADS)
+    a.de[rT + j] = a.w_t[rT + j] * (dws[j] - ssum);
+}
+
+struct TilesTc {
+  const float* q;           // (B, datt) fp32 sums of att_h[t] @ wq
+  const float* de;          // (B, Ti)
+  const float *w_prev, *wc_prev;   // (B, Ti), or null at t = 0
+  const bf16* k2;           // (ks, 2, datt)
+  const float* vf;          // (datt,)
+  const bf16* proc;         // (B, Ti, datt)
+  float* dproc;             // (B, Ti, datt) fp32 accumulator
+  float* wpart;             // (B, nt, 2, wl) out
+  float* dq;                // (B, nt, datt) out
+  float *k2acc, *dvacc;     // per block, accumulated over the steps
+  int B, Ti, datt, ks, nt, wl;
+};
+
+#define K2_LD (AB_DMAX + 8)   // bf16 rows of the K2 and dm tiles
+#define WIN_LD (AB_KC + 8)    // bf16 rows of the window tile
+#define G_LD (AB_KC + 4)      // fp32 rows of G
+
+struct TilesSmem {
+  bf16 k2[AB_KC * K2_LD];     // K2 as [2k + c][d], zero rows past 2 ks
+  bf16 win[AB_TT * WIN_LD];   // im2col windows [t][2k + c]
+  bf16 dm[AB_TT * K2_LD];     // W(dm) [t][d]
+  float g[AB_TT * G_LD];      // G = W(dm) @ K2^T [t][2k + c]
+  float fde[AB_TT * AB_DMAX]; // feat * W(de)
+  float qs[AB_DMAX], vf[AB_DMAX], de[AB_TT];
+};
+
+// Stage b: the position-wise attention backward of AB_TT positions of
+// AB_RB rows. Needs datt % 64 == 0, datt <= AB_DMAX and 2 ks <= AB_KC.
+__global__ void __launch_bounds__(TILE_THREADS, 2)
+attn_tiles_kernel(TilesTc a) {
+  extern __shared__ __align__(16) unsigned char tiles_raw[];
+  TilesSmem& s = *reinterpret_cast<TilesSmem*>(tiles_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, r8 = lane & 7, mi = lane >> 3;
+  const int ti = blockIdx.x, t0 = ti * AB_TT, rg = blockIdx.y;
+  const int datt = a.datt, nkc = 2 * a.ks, pad = (a.ks - 1) / 2;
+  {  // K2 as [2k + c][d]: 8 bf16 a load, every load before any store
+    constexpr int NV = AB_KC * AB_DMAX / 8 / TILE_THREADS;
+    const int row8 = datt / 8;
+    uint4 v[NV];
+#pragma unroll
+    for (int it = 0; it < NV; ++it) {
+      const int i = tid + it * TILE_THREADS, kc = i / row8;
+      v[it] = kc < nkc ? reinterpret_cast<const uint4*>(a.k2)[i]
+                       : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int it = 0; it < NV; ++it) {
+      const int i = tid + it * TILE_THREADS, kc = i / row8;
+      if (kc < AB_KC)
+        *reinterpret_cast<uint4*>(&s.k2[kc * K2_LD + (i % row8) * 8]) = v[it];
+    }
+  }
+  for (int d = tid; d < datt; d += TILE_THREADS) s.vf[d] = a.vf[d];
+  // d_K2 += win^T @ dm: warp (km, dn) owns taps km*16.. and columns
+  // dn * datt/2 .. (nj2 n8 tiles)
+  const int km = warp >> 1, dn = warp & 1, nj2 = datt / 16;
+  float acc2[AB_DMAX / 16][4];
+#pragma unroll
+  for (int j = 0; j < AB_DMAX / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc2[j][e] = 0.0f;
+  float dv = 0.0f;   // thread tid's column of d_v
+  const int wm = warp >> 2, wn = warp & 3;   // energy and G: 2 x 4 warps
+  const int nj = datt / 32;                  // energy n8 tiles a warp
+  for (int r = 0; r < AB_RB; ++r) {
+    const int b = rg * AB_RB + r;
+    if (b >= a.B) break;
+    const size_t rT = (size_t)b * a.Ti;
+    __syncthreads();
+    for (int d = tid; d < datt; d += TILE_THREADS)
+      s.qs[d] = rnd<bf16>(a.q[(size_t)b * datt + d]);
+    for (int i = tid; i < AB_TT; i += TILE_THREADS)
+      s.de[i] = t0 + i < a.Ti ? rnd<bf16>(a.de[rT + t0 + i]) : 0.0f;
+    {
+      constexpr int NW8 = AB_TT * AB_KC / TILE_THREADS;
+      float v[NW8];
+#pragma unroll
+      for (int it = 0; it < NW8; ++it) {
+        const int i = tid + it * TILE_THREADS, tl = i / AB_KC, kc = i % AB_KC;
+        const int pos = t0 + tl + (kc >> 1) - pad;
+        const float* src = (kc & 1) ? a.wc_prev : a.w_prev;
+        const bool in = kc < nkc && pos >= 0 && pos < a.Ti && src;
+        v[it] = in ? src[rT + pos] : 0.0f;
+      }
+#pragma unroll
+      for (int it = 0; it < NW8; ++it) {
+        const int i = tid + it * TILE_THREADS;
+        s.win[(i / AB_KC) * WIN_LD + i % AB_KC] = from_f<bf16>(v[it]);
+      }
+    }
+    __syncthreads();
+    // energies: loc = win (AB_TT x AB_KC) @ K2 (AB_KC x datt)
+    float acc[AB_DMAX / 32][4];
+#pragma unroll
+    for (int j = 0; j < AB_DMAX / 32; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    const int c0 = wn * (datt / 4);
+#pragma unroll
+    for (int k16 = 0; k16 < AB_KC; k16 += 16) {
+      uint32_t fa[4];
+      ldmatrix_x4(fa, &s.win[(wm * 16 + r8 + (mi & 1) * 8) * WIN_LD + k16 +
+                             (mi >> 1) * 8]);
+#pragma unroll
+      for (int jj = 0; jj < AB_DMAX / 64; ++jj) {
+        if (2 * jj >= nj) break;
+        uint32_t fb[4];
+        ldmatrix_x4_trans(fb, &s.k2[(k16 + r8 + (mi & 1) * 8) * K2_LD + c0 +
+                                    jj * 16 + (mi >> 1) * 8]);
+        mma_bf16(acc[2 * jj], fa, fb);
+        mma_bf16(acc[2 * jj + 1], fa, fb + 2);
+      }
+    }
+    // feat, dm, d_processed; W(dm) and feat * W(de) to shared memory.
+    // proc and d_processed are loaded for all of the thread's elements
+    // before any store, so that the loads overlap
+    float pv[AB_DMAX / 32][4], dp[AB_DMAX / 32][4];
+#pragma unroll
+    for (int j = 0; j < AB_DMAX / 32; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = t0 + wm * 16 + g + (e >> 1) * 8;
+        const size_t o = (rT + t) * datt + c0 + j * 8 + 2 * t4 + (e & 1);
+        pv[j][e] = t < a.Ti ? to_f<bf16>(a.proc[o]) : 0.0f;
+        dp[j][e] = t < a.Ti ? a.dproc[o] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < AB_DMAX / 32; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tl = wm * 16 + g + (e >> 1) * 8;
+        const int d = c0 + j * 8 + 2 * t4 + (e & 1);
+        const int t = t0 + tl;
+        float dmc = 0.0f, fde = 0.0f;
+        if (t < a.Ti) {
+          const size_t o = (rT + t) * datt + d;
+          const float m = s.qs[d] + acc[j][e];
+          const float f = tanhf(m + pv[j][e]);
+          const float der = s.de[tl];
+          const float dm = der * s.vf[d] * (1.0f - f * f);
+          a.dproc[o] = dp[j][e] + dm;
+          dmc = rnd<bf16>(dm);
+          fde = f * der;
+        }
+        s.dm[tl * K2_LD + d] = from_f<bf16>(dmc);
+        s.fde[tl * AB_DMAX + d] = fde;
+      }
+    }
+    __syncthreads();
+    for (int d = tid; d < datt; d += TILE_THREADS) {
+      float q = 0.0f, v = 0.0f;
+      for (int tl = 0; tl < AB_TT; ++tl) {
+        q += to_f<bf16>(s.dm[tl * K2_LD + d]);
+        v += s.fde[tl * AB_DMAX + d];
+      }
+      a.dq[((size_t)b * a.nt + ti) * datt + d] = q;
+      dv += v;
+    }
+    // d_K2 partial: win^T (AB_KC x AB_TT) @ W(dm) (AB_TT x datt)
+#pragma unroll
+    for (int k16 = 0; k16 < AB_TT; k16 += 16) {
+      uint32_t fa[4];
+      ldmatrix_x4_trans(fa, &s.win[(k16 + r8 + (mi >> 1) * 8) * WIN_LD +
+                                   km * 16 + (mi & 1) * 8]);
+#pragma unroll
+      for (int jj = 0; jj < AB_DMAX / 32; ++jj) {
+        if (2 * jj >= nj2) break;
+        uint32_t fb[4];
+        ldmatrix_x4_trans(fb, &s.dm[(k16 + r8 + (mi & 1) * 8) * K2_LD +
+                                    dn * (datt / 2) + jj * 16 +
+                                    (mi >> 1) * 8]);
+        mma_bf16(acc2[2 * jj], fa, fb);
+        mma_bf16(acc2[2 * jj + 1], fa, fb + 2);
+      }
+    }
+    // G = W(dm) (AB_TT x datt) @ K2^T (datt x AB_KC): warp (wm, wn) owns
+    // rows wm*16.. and taps wn*16..
+    {
+      float gacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+      for (int k16 = 0; k16 < datt; k16 += 16) {
+        uint32_t fa[4], fb[4];
+        ldmatrix_x4(fa, &s.dm[(wm * 16 + r8 + (mi & 1) * 8) * K2_LD + k16 +
+                              (mi >> 1) * 8]);
+        ldmatrix_x4(fb, &s.k2[(wn * 16 + r8 + (mi >> 1) * 8) * K2_LD + k16 +
+                              (mi & 1) * 8]);
+        mma_bf16(gacc[0], fa, fb);
+        mma_bf16(gacc[1], fa, fb + 2);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s.g[(wm * 16 + g + (e >> 1) * 8) * G_LD + wn * 16 + j * 8 + 2 * t4 +
+              (e & 1)] = gacc[j][e];
+    }
+    __syncthreads();
+    // window cotangents of this tile: dwin_c[j] = sum_k G[j - k + pad][2k + c]
+    for (int i = tid; i < 2 * a.wl; i += TILE_THREADS) {
+      const int c = i / a.wl, jl = i % a.wl;
+      float v = 0.0f;
+      for (int k = 0; k < a.ks; ++k) {
+        const int tl = jl - k;
+        if (tl >= 0 && tl < AB_TT) v += s.g[tl * G_LD + 2 * k + c];
+      }
+      a.wpart[(((size_t)b * a.nt + ti) * 2 + c) * a.wl + jl] = v;
+    }
+  }
+  // this block's d_K2 and d_v, accumulated over the steps in its own slot
+  // (every old value loaded before any store, so that the loads overlap)
+  const size_t blk = (size_t)rg * a.nt + ti;
+  float old[AB_DMAX / 16][4];
+#pragma unroll
+  for (int j = 0; j < AB_DMAX / 16; ++j) {
+    if (j >= nj2) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kc = km * 16 + g + (e >> 1) * 8;
+      const int d = dn * (datt / 2) + j * 8 + 2 * t4 + (e & 1);
+      old[j][e] = kc < nkc ? a.k2acc[(blk * nkc + kc) * datt + d] : 0.0f;
+    }
+  }
+  const float dv_old = tid < datt ? a.dvacc[blk * datt + tid] : 0.0f;
+#pragma unroll
+  for (int j = 0; j < AB_DMAX / 16; ++j) {
+    if (j >= nj2) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kc = km * 16 + g + (e >> 1) * 8;
+      const int d = dn * (datt / 2) + j * 8 + 2 * t4 + (e & 1);
+      if (kc < nkc) a.k2acc[(blk * nkc + kc) * datt + d] = old[j][e] + acc2[j][e];
+    }
+  }
+  if (tid < datt) a.dvacc[blk * datt + tid] = dv_old + dv;
+}
+
+struct LstmTc {
+  const float* dq_part;     // (B, nt, datt)
+  float* dq_st;             // (B, datt) out: dq[t]
+  const bf16* wqt;          // wq^T column-tiled (A / 32, datt, 32)
+  const float *dxd, *dxa;   // this step's dxd, the later step's dxa (null
+                            //   at the start)
+  const bf16* ga;           // (B, 4A) ga[t]
+  const float *c_new, *c_prev;
+  const unsigned char* keep;
+  float scale;
+  float* dac;
+  bf16* dga;                // (B, 4A) out
+  int B, P, E, A, D, datt, nt;
+};
+
+struct LstmSmem {
+  bf16 x[LSTM_ROWS * (AB_DMAX + 8)];     // W(dq) [row][d]
+  bf16 w[AB_DMAX * (LSTM_COLS + 8)];     // wq^T [d][unit]
+  float attn[LSTM_ROWS * (LSTM_COLS + 1)];
+};
+
+// Stage d: dh1 = carry + dxd[:, :A] + W(dq) @ wq^T for LSTM_ROWS rows and
+// LSTM_COLS units (4 warps, 16 rows x 16 units each), then the
+// attention-LSTM cell backward, a thread per (row, unit) along the units,
+// every load made before any store so that they overlap.
+__global__ void __launch_bounds__(LSTM_THREADS) attn_lstm_kernel(LstmTc a) {
+  extern __shared__ __align__(16) unsigned char lstm_raw[];
+  LstmSmem& s = *reinterpret_cast<LstmSmem*>(lstm_raw);
+  constexpr int XLD = AB_DMAX + 8, WLD = LSTM_COLS + 8, ALD = LSTM_COLS + 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, r8 = lane & 7, mi = lane >> 3;
+  const int b0 = blockIdx.y * LSTM_ROWS, u0 = blockIdx.x * LSTM_COLS;
+  const int datt = a.datt;
+  const int NO_D = a.A + a.E + a.D, NO_A = a.P + a.E + a.A;
+  {  // dq of the block's rows: the tiles' partials, 4 columns a load
+    constexpr int NQ = LSTM_ROWS * AB_DMAX / 4 / LSTM_THREADS;
+    const int row4 = datt / 4;
+    float4 v[NQ];
+#pragma unroll
+    for (int it = 0; it < NQ; ++it) v[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int ti = 0; ti < a.nt; ++ti) {
+      float4 p[NQ];
+#pragma unroll
+      for (int it = 0; it < NQ; ++it) {
+        const int i = tid + it * LSTM_THREADS, r = i / row4, b = b0 + r;
+        p[it] = r < LSTM_ROWS && b < a.B
+                    ? reinterpret_cast<const float4*>(
+                          a.dq_part + ((size_t)b * a.nt + ti) * datt)[i % row4]
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int it = 0; it < NQ; ++it) {
+        v[it].x += p[it].x, v[it].y += p[it].y;
+        v[it].z += p[it].z, v[it].w += p[it].w;
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < NQ; ++it) {
+      const int i = tid + it * LSTM_THREADS, r = i / row4, b = b0 + r;
+      if (r >= LSTM_ROWS) continue;
+      const int d = (i % row4) * 4;
+      if (blockIdx.x == 0 && b < a.B)
+        *reinterpret_cast<float4*>(a.dq_st + (size_t)b * datt + d) = v[it];
+      bf16* x = &s.x[r * XLD + d];
+      x[0] = from_f<bf16>(v[it].x), x[1] = from_f<bf16>(v[it].y);
+      x[2] = from_f<bf16>(v[it].z), x[3] = from_f<bf16>(v[it].w);
+    }
+  }
+  {  // the block's units are one 32-column tile of wq^T: 8 bf16 a load
+    constexpr int NW = AB_DMAX * LSTM_COLS / 8 / LSTM_THREADS;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        a.wqt + (size_t)(u0 / 32) * datt * 32);
+    uint4 v[NW];
+#pragma unroll
+    for (int it = 0; it < NW; ++it) {
+      const int i = tid + it * LSTM_THREADS;
+      v[it] = i < datt * 4 ? src[i] : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int it = 0; it < NW; ++it) {
+      const int i = tid + it * LSTM_THREADS;
+      if (i < datt * 4)
+        *reinterpret_cast<uint4*>(&s.w[(i / 4) * WLD + (i % 4) * 8]) = v[it];
+    }
+  }
+  __syncthreads();
+  {
+    const int wm = warp >> 1, wn = warp & 1;
+    float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    for (int k16 = 0; k16 < datt; k16 += 16) {
+      uint32_t fa[4], fb[4];
+      ldmatrix_x4(fa, &s.x[(wm * 16 + r8 + (mi & 1) * 8) * XLD + k16 +
+                           (mi >> 1) * 8]);
+      ldmatrix_x4_trans(fb, &s.w[(k16 + r8 + (mi & 1) * 8) * WLD + wn * 16 +
+                                 (mi >> 1) * 8]);
+      mma_bf16(acc[0], fa, fb);
+      mma_bf16(acc[1], fa, fb + 2);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s.attn[(wm * 16 + g + (e >> 1) * 8) * ALD + wn * 16 + j * 8 + 2 * t4 +
+               (e & 1)] = acc[j][e];
+  }
+  __syncthreads();
+  constexpr int PER = LSTM_ROWS * LSTM_COLS / LSTM_THREADS;
+  float dh[PER], gv[PER][4], cp[PER], cn[PER], dc[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = tid + k * LSTM_THREADS;
+    const int b = b0 + i / LSTM_COLS, u = u0 + i % LSTM_COLS;
+    if (b >= a.B || u >= a.A) continue;
+    const size_t idx = (size_t)b * a.A + u;
+    dh[k] = a.dxa ? a.dxa[(size_t)b * NO_A + a.P + a.E + u] : 0.0f;
+    dh[k] = dh[k] + a.dxd[(size_t)b * NO_D + u];
+    const bf16* ga = a.ga + (size_t)b * 4 * a.A + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) gv[k][q] = to_f<bf16>(ga[q * a.A]);
+    cp[k] = a.c_prev ? a.c_prev[idx] : 0.0f;
+    cn[k] = a.c_new[idx];
+    dc[k] = a.dac[idx];
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int i = tid + k * LSTM_THREADS;
+    const int r = i / LSTM_COLS, c = i % LSTM_COLS;
+    const int b = b0 + r, u = u0 + c;
+    if (b >= a.B || u >= a.A) continue;
+    const size_t idx = (size_t)b * a.A + u;
+    float d = dh[k] + s.attn[r * ALD + c];
+    if (a.keep) d = d * (a.keep[idx] ? a.scale : 0.0f);
+    float dg[4];
+    a.dac[idx] = lstm_unit_bwd(gv[k][0], gv[k][1], gv[k][2], gv[k][3], cp[k],
+                               cn[k], d, dc[k], dg);
+    bf16* o = a.dga + (size_t)b * 4 * a.A + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[q * a.A] = from_f<bf16>(dg[q]);
+  }
+}
+
+// After the loop: the blocks' d_K2 and d_v partials in block order.
+__global__ void bwd_finish_kernel(const float* __restrict__ k2acc,
+                                  const float* __restrict__ dvacc, int nblk,
+                                  float* __restrict__ dk2,
+                                  float* __restrict__ dvo, int nk2, int datt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < nk2) {
+    float v = 0.0f;
+    for (int k = 0; k < nblk; ++k) v += k2acc[(size_t)k * nk2 + i];
+    dk2[i] += v;
+  }
+  if (i < datt) {
+    float v = 0.0f;
+    for (int k = 0; k < nblk; ++k) v += dvacc[(size_t)k * datt + i];
+    dvo[i] += v;
+  }
+}
+
 struct Bwd {
-  const void *wta, *wtd, *wq, *wqt, *k2;  // W; wta/wtd column-tiled
+  const void *wta, *wtd, *wq, *wqc, *wqt, *k2;  // W; wta/wtd/wqc/wqt column-tiled
   const float* vf;
   const void *mem, *proc, *ga, *gd, *atth;  // W
   const float *attc, *decc, *wst, *wcp;     // fp32 stacks
@@ -472,14 +1075,34 @@ struct Bwd {
   float s_att, s_dec;
   void *dga, *dgd, *dctx;                   // W out stacks
   float *dpre, *dq, *dproc, *dk2, *dv;      // fp32 outs (dproc, dk2, dv zeroed)
-  float *dxd, *dxa, *ddc, *dac, *c_dw, *c_dwc, *dv_part, *k2_part;
   int B, T, Ti, P, E, A, D, datt, ks;
 };
 
-template <typename W>
-static cudaError_t run_bwd(const Bwd& r, cudaStream_t s) {
+// The fp32 chain's scratch: (dxd, dxa, ddc, dac, c_dw, c_dwc, dv_part,
+// k2_part); returns the number of floats.
+static size_t carve_f32(float** p, float* base, int B, int Ti, int P, int E,
+                        int A, int D, int datt, int ks) {
+  const size_t sizes[] = {(size_t)B * (A + E + D), (size_t)B * (P + E + A),
+                          (size_t)B * D, (size_t)B * A, (size_t)B * Ti,
+                          (size_t)B * Ti, (size_t)B * datt,
+                          (size_t)B * 2 * ks * datt};
+  size_t off = 0;
+  for (int i = 0; i < 8; ++i) {
+    p[i] = base ? base + off : nullptr;
+    off += (sizes[i] + 3) / 4 * 4;
+  }
+  return off;
+}
+
+// The fp32 chain: the CUDA-core kernels of the first design.
+static cudaError_t run_bwd_f32(const Bwd& r, float* scratch, cudaStream_t s) {
+  typedef float W;
   const int NO_D = r.A + r.E + r.D, NO_A = r.P + r.E + r.A;
   const int KD = 4 * r.D, KA = 4 * r.A;
+  float* sc[8];
+  carve_f32(sc, scratch, r.B, r.Ti, r.P, r.E, r.A, r.D, r.datt, r.ks);
+  float *dxd = sc[0], *dxa = sc[1], *ddc = sc[2], *dac = sc[3];
+  float *c_dw = sc[4], *c_dwc = sc[5], *dv_part = sc[6], *k2_part = sc[7];
   cudaError_t err = tile_product_prepare<W>(KD > KA ? KD : KA);
   if (err != cudaSuccess) return err;
   const size_t sm_ab = attn_bwd_smem(r.Ti, r.E, r.datt, r.ks);
@@ -502,37 +1125,124 @@ static cudaError_t run_bwd(const Bwd& r, cudaStream_t s) {
     const size_t tw = t * B * r.Ti;
     GatesBwd<W> dec{gd + 4 * td, r.decc + td,
                     t ? r.decc + td - B * r.D : nullptr,
-                    start ? nullptr : r.dxd + r.A + r.E, NO_D, r.ddh + td,
-                    r.keep_d ? r.keep_d + td : nullptr, r.s_dec, r.ddc,
+                    start ? nullptr : dxd + r.A + r.E, NO_D, r.ddh + td,
+                    r.keep_d ? r.keep_d + td : nullptr, r.s_dec, ddc,
                     dgd + 4 * td};
     lstm_gates_bwd_kernel<W><<<g_gates, 256, 0, s>>>(dec, dec, r.B, r.D);
     tile_product_kernel<W><<<g_pd, TP_THREADS, tile_product_smem(KD), s>>>(
-        dgd + 4 * td, wtd, r.dxd, dgd + 4 * td, wtd, r.dxd, r.B, KD, NO_D);
-    AttnBwd<W> ab{r.dxd, start ? nullptr : r.dxa, r.dctx_o + te,
+        dgd + 4 * td, wtd, dxd, dgd + 4 * td, wtd, dxd, r.B, KD, NO_D);
+    AttnBwd<W> ab{dxd, start ? nullptr : dxa, r.dctx_o + te,
                   r.dalign + tw, (const W*)r.mem, (const W*)r.proc,
                   atth + ta, (const W*)r.wq, (const W*)r.wqt, (const W*)r.k2,
                   r.vf, r.wst + tw, t ? r.wst + tw - B * r.Ti : nullptr,
                   t ? r.wcp + tw : nullptr, ga + 4 * ta, r.attc + ta,
                   t ? r.attc + ta - B * r.A : nullptr,
-                  r.keep_a ? r.keep_a + ta : nullptr, r.s_att, r.c_dw,
-                  r.c_dwc, r.dac, dctx + te, r.dq + t * B * r.datt,
-                  dga + 4 * ta, r.dproc, r.k2_part, r.dv_part, r.Ti, r.P, r.E,
+                  r.keep_a ? r.keep_a + ta : nullptr, r.s_att, c_dw,
+                  c_dwc, dac, dctx + te, r.dq + t * B * r.datt,
+                  dga + 4 * ta, r.dproc, k2_part, dv_part, r.Ti, r.P, r.E,
                   r.A, r.D, r.datt, r.ks};
     attn_bwd_kernel<W><<<r.B, AB_THREADS, sm_ab, s>>>(ab);
     tile_product_kernel<W><<<g_pa, TP_THREADS, tile_product_smem(KA), s>>>(
-        dga + 4 * ta, wta, r.dxa, dga + 4 * ta, wta, r.dxa, r.B, KA, NO_A);
-    accumulate_parts<<<(nk2 + 255) / 256, 256, 0, s>>>(r.k2_part, r.B, nk2,
+        dga + 4 * ta, wta, dxa, dga + 4 * ta, wta, dxa, r.B, KA, NO_A);
+    accumulate_parts<<<(nk2 + 255) / 256, 256, 0, s>>>(k2_part, r.B, nk2,
                                                        r.dk2);
-    accumulate_parts<<<(r.datt + 255) / 256, 256, 0, s>>>(r.dv_part, r.B,
+    accumulate_parts<<<(r.datt + 255) / 256, 256, 0, s>>>(dv_part, r.B,
                                                           r.datt, r.dv);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = cudaMemcpy2DAsync(r.dpre + t * B * r.P, r.P * sizeof(float), r.dxa,
+    err = cudaMemcpy2DAsync(r.dpre + t * B * r.P, r.P * sizeof(float), dxa,
                             NO_A * sizeof(float), r.P * sizeof(float), r.B,
                             cudaMemcpyDeviceToDevice, s);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+static int device_sms() {
+  int dev, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// The bf16 chain on the tensor cores (see the section's header).
+static cudaError_t run_bwd_tc(const Bwd& r, float* scratch, int sms,
+                              cudaStream_t s) {
+  TcChain c;
+  carve_tc(&c, scratch, sms, r.B, r.T, r.Ti, r.P, r.E, r.A, r.D, r.datt,
+           r.ks);
+  const int NO_D = r.A + r.E + r.D, NO_A = r.P + r.E + r.A;
+  const size_t sm_rows = sizeof(float) * ((size_t)r.E + r.Ti + 32);
+  cudaError_t err = tc_product_prepare();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_rows_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sm_rows);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_tiles_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(TilesSmem));
+  if (err != cudaSuccess) return err;
+  const size_t B = r.B;
+  const bf16 *ga = (const bf16*)r.ga, *gd = (const bf16*)r.gd;
+  const bf16* atth = (const bf16*)r.atth;
+  bf16 *dga = (bf16*)r.dga, *dgd = (bf16*)r.dgd, *dctx = (bf16*)r.dctx;
+  // the query of every step, q = att_h[t] @ wq, in one product
+  err = tc_product(atth, r.A, r.T * r.B, r.A, (const bf16*)r.wqc, r.datt, 1,
+                   TcOut{c.q, nullptr, nullptr, nullptr, 0, 0}, s);
+  if (err != cudaSuccess) return err;
+  int* cnt_d = c.count;
+  int* cnt_a = c.count + tc_tiles(r.B, NO_D);
+  const int g_gates = (r.B * r.D + 255) / 256;
+  const dim3 g_tiles(c.nt, c.nrg);
+  const dim3 g_lstm((r.A + LSTM_COLS - 1) / LSTM_COLS,
+                    (r.B + LSTM_ROWS - 1) / LSTM_ROWS);
+  for (int t = r.T - 1; t >= 0; --t) {
+    const bool start = t == r.T - 1;
+    const size_t ta = t * B * r.A, td = t * B * r.D, te = t * B * r.E;
+    const size_t tw = t * B * r.Ti;
+    GatesTc gt{gd + 4 * td, r.decc + td, t ? r.decc + td - B * r.D : nullptr,
+               r.ddh + td, r.keep_d ? r.keep_d + td : nullptr, r.s_dec,
+               c.ddc, dgd + 4 * td, start ? nullptr : c.dxd, r.B, r.D, r.A,
+               r.E};
+    bwd_gates_kernel<<<g_gates, 256, 0, s>>>(gt);
+    tc_product(dgd + 4 * td, 4 * r.D, r.B, 4 * r.D, (const bf16*)r.wtd, NO_D,
+               c.sd, TcOut{c.dxd, c.dxd_p, cnt_d, nullptr, 0, 0}, s);
+    RowsTc rt{c.dxd, start ? nullptr : c.dxa, r.dctx_o + te, r.dalign + tw,
+              (const bf16*)r.mem, r.wst + tw, start ? nullptr : c.wpart,
+              c.c_dwc, c.de, dctx + te, r.B, r.Ti, r.P, r.E, r.A, r.D, c.nt,
+              c.wl, (r.ks - 1) / 2};
+    attn_rows_kernel<<<r.B, ROW_THREADS, sm_rows, s>>>(rt);
+    TilesTc tt{c.q + t * B * r.datt, c.de, t ? r.wst + tw - B * r.Ti : nullptr,
+               t ? r.wcp + tw : nullptr, (const bf16*)r.k2, r.vf,
+               (const bf16*)r.proc, r.dproc, c.wpart, c.dq, c.k2acc, c.dvacc,
+               r.B, r.Ti, r.datt, r.ks, c.nt, c.wl};
+    attn_tiles_kernel<<<g_tiles, TILE_THREADS, sizeof(TilesSmem), s>>>(tt);
+    LstmTc lt{c.dq, r.dq + t * B * r.datt, (const bf16*)r.wqt, c.dxd,
+              start ? nullptr : c.dxa, ga + 4 * ta, r.attc + ta,
+              t ? r.attc + ta - B * r.A : nullptr,
+              r.keep_a ? r.keep_a + ta : nullptr, r.s_att, c.dac,
+              dga + 4 * ta, r.B, r.P, r.E, r.A, r.D, r.datt, c.nt};
+    attn_lstm_kernel<<<g_lstm, LSTM_THREADS, sizeof(LstmSmem), s>>>(lt);
+    err = tc_product(dga + 4 * ta, 4 * r.A, r.B, 4 * r.A, (const bf16*)r.wta,
+                     NO_A, c.sa,
+                     TcOut{c.dxa, c.dxa_p, cnt_a, r.dpre + t * B * r.P, r.P,
+                           r.P}, s);
+    if (err != cudaSuccess) return err;
+  }
+  const int nk2 = 2 * r.ks * r.datt;
+  bwd_finish_kernel<<<(nk2 + 255) / 256, 256, 0, s>>>(
+      c.k2acc, c.dvacc, c.nt * c.nrg, r.dk2, r.dv, nk2, r.datt);
+  return cudaGetLastError();
+}
+
+// Shapes the bf16 chain takes: LSTM widths in whole K chunks of the
+// product, an attention width of 64 or 128, at most AB_KC taps.
+static bool tc_shapes_ok(int E, int A, int D, int datt, int ks) {
+  return A % TC_KC == 0 && D % TC_KC == 0 && datt % 64 == 0 &&
+         datt <= AB_DMAX && 2 * ks <= AB_KC && E % 8 == 0;
 }
 
 extern "C" {
@@ -561,37 +1271,60 @@ int train_scan_fwd(int bf16, const void* w1, const void* b1, const void* w2,
   return (int)(bf16 ? run_fwd<__nv_bfloat16>(f, s) : run_fwd<float>(f, s));
 }
 
-// The backward chain (see run_bwd and the header). wta / wtd: [wi ; wh]^T
-// of each LSTM, column-tiled; wq (A, datt), wqt (datt, A); wcp (T, B, Ti)
-// the exclusive prefix sums of w. dproc, dk2, dv, ddc, dac, c_dw and c_dwc
-// must hold zeros; the rest of the scratch is written before it is read.
+// Bytes of scratch the backward chain needs at these shapes (bf16 != 0:
+// the tensor-core chain). Returns cudaError_t.
+int train_scan_bwd_scratch(int bf16, int B, int T, int Ti, int P, int E,
+                           int A, int D, int datt, int ks, size_t* bytes) {
+  if (bf16) {
+    const int sms = device_sms();
+    if (sms == 0) return (int)cudaErrorNoDevice;
+    TcChain c;
+    *bytes = sizeof(float) *
+             carve_tc(&c, nullptr, sms, B, T, Ti, P, E, A, D, datt, ks);
+  } else {
+    float* p[8];
+    *bytes = sizeof(float) * carve_f32(p, nullptr, B, Ti, P, E, A, D, datt, ks);
+  }
+  return 0;
+}
+
+// The backward chain (see the header and the bf16 section). wta / wtd:
+// [wi ; wh]^T of each LSTM, wqc: wq (A, datt), wqt: wq^T (datt, A), all
+// column-tiled (lstm_layout.py to_col_tiles); wq (A, datt) row-major; wcp
+// (T, B, Ti) the exclusive prefix sums of w. dproc, dk2 and dv must hold
+// zeros; scratch holds train_scan_bwd_scratch's bytes and is cleared here.
 // Returns cudaError_t.
 int train_scan_bwd(int bf16, const void* wta, const void* wtd, const void* wq,
-                   const void* wqt, const void* k2, const void* vf,
-                   const void* mem, const void* proc, const void* ga,
-                   const void* gd, const void* atth, const void* attc,
-                   const void* decc, const void* wst, const void* wcp,
-                   const void* ddh, const void* dctx_o, const void* dalign,
-                   const void* keep_a, const void* keep_d, float s_att,
-                   float s_dec, void* dga, void* dgd, void* dpre, void* dctx,
-                   void* dq, void* dproc, void* dk2, void* dv, void* dxd,
-                   void* dxa, void* ddc, void* dac, void* c_dw, void* c_dwc,
-                   void* dv_part, void* k2_part, int B, int T,
-                   int Ti, int P, int E, int A, int D, int datt, int ks,
-                   void* stream) {
-  if (ks % 2 == 0 || datt > AB_THREADS || AB_THREADS % datt)
+                   const void* wqc, const void* wqt, const void* k2,
+                   const void* vf, const void* mem, const void* proc,
+                   const void* ga, const void* gd, const void* atth,
+                   const void* attc, const void* decc, const void* wst,
+                   const void* wcp, const void* ddh, const void* dctx_o,
+                   const void* dalign, const void* keep_a, const void* keep_d,
+                   float s_att, float s_dec, void* dga, void* dgd, void* dpre,
+                   void* dctx, void* dq, void* dproc, void* dk2, void* dv,
+                   void* scratch, int B, int T, int Ti, int P, int E, int A,
+                   int D, int datt, int ks, void* stream) {
+  if (ks % 2 == 0) return (int)cudaErrorInvalidValue;
+  if (bf16 ? !tc_shapes_ok(E, A, D, datt, ks)
+           : (datt > AB_THREADS || AB_THREADS % datt))
     return (int)cudaErrorInvalidValue;
-  Bwd r{wta, wtd, wq, wqt, k2, (const float*)vf, mem, proc, ga, gd, atth,
-        (const float*)attc, (const float*)decc, (const float*)wst,
+  Bwd r{wta, wtd, wq, wqc, wqt, k2, (const float*)vf, mem, proc, ga, gd,
+        atth, (const float*)attc, (const float*)decc, (const float*)wst,
         (const float*)wcp, (const float*)ddh, (const float*)dctx_o,
         (const float*)dalign, (const unsigned char*)keep_a,
         (const unsigned char*)keep_d, s_att, s_dec, dga, dgd, dctx,
         (float*)dpre, (float*)dq, (float*)dproc, (float*)dk2, (float*)dv,
-        (float*)dxd, (float*)dxa, (float*)ddc, (float*)dac, (float*)c_dw,
-        (float*)c_dwc, (float*)dv_part, (float*)k2_part,
         B, T, Ti, P, E, A, D, datt, ks};
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(bf16 ? run_bwd<__nv_bfloat16>(r, s) : run_bwd<float>(r, s));
+  size_t bytes;
+  int err = train_scan_bwd_scratch(bf16, B, T, Ti, P, E, A, D, datt, ks,
+                                   &bytes);
+  if (err != 0) return err;
+  cudaError_t e = cudaMemsetAsync(scratch, 0, bytes, s);
+  if (e != cudaSuccess) return (int)e;
+  if (bf16) return (int)run_bwd_tc(r, (float*)scratch, device_sms(), s);
+  return (int)run_bwd_f32(r, (float*)scratch, s);
 }
 
 const char* error_string(int err) {

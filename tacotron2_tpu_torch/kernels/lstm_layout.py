@@ -9,7 +9,8 @@ stores each block's (K, 4*units) slab contiguously, column
 ``g*units + u`` holding gate g of the block's unit u, so every load a
 block makes is whole sectors of its own. The backward kernels' products
 (rows @ a transposed weight) read plain column tiles the same way
-(``to_col_tiles``).
+(``to_col_tiles``): the CUDA-core tile product a tile per block, the
+tensor-core product (``csrc/tc_product.cuh``) two tiles per block.
 """
 
 from __future__ import annotations
@@ -43,4 +44,11 @@ def to_col_tiles(w: torch.Tensor, cols: int = TILE_COLS) -> torch.Tensor:
     nt = -(-N // cols)
     w = torch.nn.functional.pad(w, (0, nt * cols - N))
     return w.reshape(K, nt, cols).permute(1, 0, 2).contiguous()
+
+
+def from_col_tiles(wt: torch.Tensor, n: int) -> torch.Tensor:
+    """(ceil(N / cols), K, cols) -> (K, n) row-major: ``to_col_tiles``
+    undone, the zero columns past n dropped."""
+    nt, K, cols = wt.shape
+    return wt.permute(1, 0, 2).reshape(K, nt * cols)[:, :n]
 

@@ -5,30 +5,81 @@ Replaces the TPU kernel ``tacotron2_tpu/kernels/mel_kernel.py``
 ``_mel_kernel`` (via ``mel_spectrogram_pallas``): framed DFT (products with
 the windowed cos and sin bases) -> magnitude -> mel product ->
 log(clamp 1e-5), with the (frames x bins) magnitude never in device memory.
-fp32 throughout.
+fp32 in and out; the kernel takes each DFT product as three TF32 products
+(3xTF32: the operands split into TF32 hi and lo parts), which keeps fp32
+accuracy on the tensor cores, on frames folded about their centre (half the
+depth: the windowed bases are even and odd there).
 
 ``mel_spectrogram_fused`` takes the kernel (``csrc/mel_kernel.cu``) for a
 CUDA tensor and the plain version for a CPU tensor; nothing else picks
 between them. The kernel reads the overlapping frames straight from the
 waveform and does the reflect padding itself; the CUDA source's header note
-gives its design and what bounds it on the H100.
+gives its design and what bounds it on the H100. The windowed bases are
+split and packed for it once per (n_fft, window, device) (``packed_bases``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from tacotron2_tpu_torch.audio.mel import MelConfig, mel_weights
-from tacotron2_tpu_torch.audio.stft import (dft_basis, frame_signal,
+from tacotron2_tpu_torch.audio.stft import (STFTConfig, dft_basis,
+                                            frame_signal,
                                             n_frames_for_samples)
 from tacotron2_tpu_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"mel_spectrogram": [_P] * 5 + [_I] * 7 + [_P],
-               "mel_limits": [_I] * 3 + [ctypes.POINTER(ctypes.c_size_t),
-                                         ctypes.POINTER(ctypes.c_int)]}
+               "mel_limits": [_I, ctypes.POINTER(ctypes.c_size_t),
+                              ctypes.POINTER(ctypes.c_int)]}
+_NB, _KC = 64, 32   # MEL_NB bins per tile, MEL_KC depth per chunk
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``x`` as hi + lo, each rounded to TF32 (10 mantissa bits,
+    nearest with ties away from zero: PTX's cvt.rna.tf32.f32), hi + lo
+    within ~2^-22 of x."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+@functools.lru_cache(maxsize=16)
+def _packed(stft_cfg: STFTConfig, device: str):
+    cos_b, sin_b = dft_basis(stft_cfg, device)
+    n_fft, n_bins = cos_b.shape
+    half = n_fft // 2
+    even = (cos_b[1:half] - cos_b.flip(0)[:half - 1]).abs().max()
+    odd = (sin_b[1:half] + sin_b.flip(0)[:half - 1]).abs().max()
+    if n_fft % 2 or max(float(even), float(odd)) > 1e-6:
+        raise ValueError(f"the mel kernel folds the DFT about n_fft / 2: it "
+                         f"needs an even n_fft and a window symmetric about "
+                         f"its centre (n_fft - win_length even), got n_fft "
+                         f"{n_fft}, win_length {stft_cfg.win_length}")
+    cos_f, sin_f = cos_b[:half + 1].clone(), sin_b[:half + 1].clone()
+    sin_f[0], sin_f[half] = 0.0, 0.0     # sin(0) and sin(pi n)
+    nt, kpad = -(-n_bins // _NB), -(-(half + 1) // _KC) * _KC
+    pad = lambda b: torch.nn.functional.pad(
+        b, (0, nt * _NB - n_bins, 0, kpad - half - 1)).reshape(kpad, nt, _NB)
+    both = torch.cat([pad(cos_f), pad(sin_f)], dim=2)   # (kpad, nt, 2 * NB)
+    return tuple(p.permute(1, 0, 2).contiguous() for p in split_tf32(both))
+
+
+def packed_bases(cfg: MelConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The windowed cos and sin bases as the kernel streams them: rows
+    k <= n_fft / 2 only (the kernel folds each frame about its centre, the
+    bases being even and odd there), split into TF32 hi and lo parts, each
+    (ceil(n_bins / 64), n_fft / 2 + 1 rounded up to 32, [cos 64 | sin 64])
+    with zeros past n_bins and those rows. Made once per STFT config and
+    device, as the bases themselves; raises where the window is not
+    symmetric about the frame's centre."""
+    return _packed(cfg.stft, str(device))
 
 
 def mel_spectrogram_fused_plain(y: torch.Tensor, cfg: MelConfig
@@ -64,29 +115,27 @@ def mel_spectrogram_fused(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     lib = _build.load("mel_kernel", _SIGNATURES)
     need, have = ctypes.c_size_t(0), ctypes.c_int(0)
     with torch.cuda.device(y.device):
-        code = lib.mel_limits(cfg.filter_length, cfg.hop_length,
-                              cfg.n_mel_channels, ctypes.byref(need),
+        code = lib.mel_limits(cfg.n_mel_channels, ctypes.byref(need),
                               ctypes.byref(have))
         if code == 1:
             raise ValueError(f"the mel kernel takes at most 128 mel "
                              f"channels, got {cfg.n_mel_channels}")
         if code == 2:
-            raise ValueError(f"the mel kernel needs {need.value} bytes of "
-                             f"shared memory at n_fft {cfg.filter_length}, "
-                             f"hop {cfg.hop_length}; a block may use "
-                             f"{have.value}")
+            raise RuntimeError(f"the mel kernel needs {need.value} bytes "
+                               f"of shared memory; a block may use "
+                               f"{have.value}")
         if code != 0:
             raise RuntimeError("mel kernel: the device's shared-memory "
                                "limit could not be read")
         y = y.contiguous()
-        cos_b, sin_b = dft_basis(cfg.stft, y.device)
+        b_hi, b_lo = packed_bases(cfg, y.device)
         mel_t = mel_weights(cfg, y.device)
         T = n_frames_for_samples(cfg.stft, S)
         out = torch.empty(B, cfg.n_mel_channels, T, device=y.device)
         status = lib.mel_spectrogram(
-            y.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
+            y.data_ptr(), b_hi.data_ptr(), b_lo.data_ptr(),
             mel_t.data_ptr(), out.data_ptr(), B, S, T, cfg.filter_length,
-            cfg.hop_length, cos_b.shape[1], cfg.n_mel_channels,
+            cfg.hop_length, cfg.stft.n_bins, cfg.n_mel_channels,
             torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(lib, status, "mel_spectrogram")
     mel_spectrogram_fused.launches += 1

@@ -8,7 +8,8 @@ eight residual stacks of ``models/decoder_vjp.py`` (``Residuals``).
 ``backward_chain`` replaces its ``_make_bwd_kernel`` (via
 ``_bwd_scan_call`` and ``backward_chain``) in the rematerialising form: the
 reverse-time data-gradient chain, with d_processed, d_K2 and d_v
-accumulated in fp32 in the kernel.
+accumulated in fp32 in the kernel. At bf16 its products run on the tensor
+cores; at fp32 on the CUDA cores (the tensor cores take no plain fp32).
 
 The math is the TPU kernels', not their layout. The TPU kernels evaluate
 the location conv as a windowed banded-Toeplitz product for the matrix
@@ -38,11 +39,13 @@ import torch.nn.functional as F
 from tacotron2_tpu_torch.kernels import _build
 from tacotron2_tpu_torch.kernels.decoder_batch import _cell
 from tacotron2_tpu_torch.kernels.encoder_lstm import cell_backward
-from tacotron2_tpu_torch.kernels.lstm_layout import (from_blocks, to_blocks,
+from tacotron2_tpu_torch.kernels.lstm_layout import (from_blocks,
+                                                     from_col_tiles, to_blocks,
                                                      to_col_tiles)
 
 _UNITS = 8          # hidden units per scan_lstm_kernel block (TS_UNITS)
-_AB_THREADS = 512   # attn_bwd_kernel threads: datt must divide it
+_AB_THREADS = 512   # attn_bwd_kernel threads (fp32): datt must divide it
+_TC_KC = 32         # depth chunk of the tensor-core product (TC_KC)
 
 Keep = Tuple[torch.Tensor, torch.Tensor]
 
@@ -58,9 +61,12 @@ class ScanWeights(NamedTuple):
     k2: torch.Tensor    # (ks, 2, datt) location conv folded through dense
     v: torch.Tensor     # (datt,)
     vf: torch.Tensor    # (datt,) fp32 v, as the backward's d_feat takes it
-    wta: torch.Tensor   # (4A, P+E+A) attention LSTM [wi ; wh]^T
-    wtd: torch.Tensor   # (4D, A+E+D) decoder LSTM [wi ; wh]^T
-    wqt: torch.Tensor   # (datt, A) query, (out, in)
+    # the backward's products read their weights column-tiled
+    # (lstm_layout.to_col_tiles), made here once
+    wta: torch.Tensor   # (ceil(K1/32), 4A, 32) attention LSTM [wi ; wh]^T
+    wtd: torch.Tensor   # (ceil(K2/32), 4D, 32) decoder LSTM [wi ; wh]^T
+    wqt: torch.Tensor   # (A/32, datt, 32) query (out, in) = wq^T
+    wqc: torch.Tensor   # (datt/32, A, 32) query (in, out) = wq
 
 
 class Residuals(NamedTuple):
@@ -100,16 +106,18 @@ def pack_scan_weights(att_rnn, query_w: torch.Tensor, v_w: torch.Tensor,
         def lstm(p):
             wt = torch.cat([p.w_ih, p.w_hh], dim=1).to(dtype)   # (4H, K)
             return (to_blocks(wt.t(), _UNITS), (p.b_ih + p.b_hh).float(),
-                    wt.contiguous())
+                    to_col_tiles(wt))
         w1, b1, wta = lstm(att_rnn)
         w2, b2, wtd = lstm(dec_rnn)
         k2 = torch.einsum("fck,Df->kcD", conv_w.float(), dense_w.float())
         as_w = lambda x: x.to(dtype).contiguous()
+        wq = as_w(query_w.t())
         return ScanWeights(w1=w1, b1=b1.contiguous(), w2=w2,
-                           b2=b2.contiguous(), wq=as_w(query_w.t()),
-                           k2=as_w(k2), v=as_w(v_w[0]),
-                           vf=v_w[0].float().contiguous(), wta=wta, wtd=wtd,
-                           wqt=as_w(query_w))
+                           b2=b2.contiguous(), wq=wq, k2=as_w(k2),
+                           v=as_w(v_w[0]), vf=v_w[0].float().contiguous(),
+                           wta=wta, wtd=wtd,
+                           wqt=to_col_tiles(query_w.to(dtype)),
+                           wqc=to_col_tiles(wq))
 
 
 def keep_masks(generator: Optional[torch.Generator], T: int, B: int, a: int,
@@ -131,9 +139,9 @@ def _scale(p: float) -> float:
 def _dims(sw: ScanWeights, mem: torch.Tensor):
     """(A, D, P, E, datt, ks) of packed weights and memory."""
     A = sw.wq.shape[0]
-    D = sw.wtd.shape[0] // 4
+    D = sw.b2.shape[0] // 4
     E = mem.shape[2]
-    P = sw.wta.shape[1] - E - A
+    P = sw.w1.shape[1] - E - A
     ks, _, datt = sw.k2.shape
     return A, D, P, E, datt, ks
 
@@ -204,8 +212,9 @@ def backward_chain_plain(sw: ScanWeights, res: Residuals, mem: torch.Tensor,
     A, D, P, E, datt, ks = _dims(sw, mem)
     Ti = mem.shape[1]
     pad = (ks - 1) // 2
-    wta, wtd = sw.wta.float(), sw.wtd.float()
-    wq, wqt = sw.wq.float(), sw.wqt.float()
+    wta = from_col_tiles(sw.wta, P + E + A).float()
+    wtd = from_col_tiles(sw.wtd, A + E + D).float()
+    wq, wqt = sw.wq.float(), from_col_tiles(sw.wqt, A).float()
     k2 = sw.k2.float().permute(2, 1, 0)        # (datt, 2, ks)
     memf, procf = mem.float(), proc.float()
     s_att, s_dec = _scale(p_att), _scale(p_dec)
@@ -266,8 +275,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "train_scan_fwd": [_I] + [_P] * 13 + [_F, _F] + [_P] * 13 + [_I] * 9
     + [_P],
-    "train_scan_bwd": [_I] + [_P] * 20 + [_F, _F] + [_P] * 16 + [_I] * 9
+    "train_scan_bwd": [_I] + [_P] * 21 + [_F, _F] + [_P] * 9 + [_I] * 9
     + [_P],
+    "train_scan_bwd_scratch": [_I] * 10 + [ctypes.POINTER(ctypes.c_size_t)],
 }
 
 
@@ -291,11 +301,12 @@ def _check_weights(sw: ScanWeights, mem: torch.Tensor) -> None:
     if A % _UNITS or D % _UNITS or ks % 2 == 0:
         raise ValueError(f"scan kernels need LSTM widths that are multiples "
                          f"of {_UNITS} and an odd location kernel size")
-    if datt > _AB_THREADS or _AB_THREADS % datt:
+    if W == torch.float32 and (datt > _AB_THREADS or _AB_THREADS % datt):
         raise ValueError(f"scan backward kernel needs an attention width "
                          f"dividing {_AB_THREADS}, got {datt}")
     f32, c = torch.float32, 4 * _UNITS
     K1, K2 = P + E + A, A + E + D
+    tiles = lambda n, k: (-(-n // 32), k, 32)
     for name, t, shape, dt in (
             ("w1", sw.w1, (A // _UNITS, K1, c), W),
             ("b1", sw.b1, (4 * A,), f32),
@@ -303,8 +314,10 @@ def _check_weights(sw: ScanWeights, mem: torch.Tensor) -> None:
             ("b2", sw.b2, (4 * D,), f32),
             ("wq", sw.wq, (A, datt), W), ("k2", sw.k2, (ks, 2, datt), W),
             ("v", sw.v, (datt,), W), ("vf", sw.vf, (datt,), f32),
-            ("wta", sw.wta, (4 * A, K1), W), ("wtd", sw.wtd, (4 * D, K2), W),
-            ("wqt", sw.wqt, (datt, A), W)):
+            ("wta", sw.wta, tiles(K1, 4 * A), W),
+            ("wtd", sw.wtd, tiles(K2, 4 * D), W),
+            ("wqt", sw.wqt, tiles(A, datt), W),
+            ("wqc", sw.wqc, tiles(datt, A), W)):
         _check(name, t, shape, dt, mem.device)
 
 
@@ -379,6 +392,14 @@ def backward_chain(sw: ScanWeights, res: Residuals, mem: torch.Tensor,
     W, dev = sw.wq.dtype, mem.device
     T, B, _ = res.ga.shape
     A, D, P, E, datt, ks = _dims(sw, mem)
+    if W == torch.bfloat16 and (A % _TC_KC or D % _TC_KC or datt % 64
+                                or datt > 128 or ks > 32 or E % 8):
+        raise ValueError(f"the bf16 scan backward needs LSTM widths that are "
+                         f"multiples of {_TC_KC}, an attention width of 64 "
+                         f"or 128, at most 31 location taps and an encoder "
+                         f"width that is a multiple of 8; got A={A}, D={D}, "
+                         f"datt={datt}, "
+                         f"ks={ks}, E={E}")
     Ti = mem.shape[1]
     f32 = torch.float32
     shapes = Residuals((T, B, 4 * A), (T, B, 4 * D), (T, B, A), (T, B, D),
@@ -399,22 +420,26 @@ def backward_chain(sw: ScanWeights, res: Residuals, mem: torch.Tensor,
     out = ChainGrads(e(T, B, 4 * A, dt=W), e(T, B, 4 * D, dt=W), e(T, B, P),
                      e(T, B, E, dt=W), e(T, B, datt), z(B, Ti, datt),
                      z(ks, 2, datt), z(datt))
-    scratch = (e(B, A + E + D), e(B, P + E + A), z(B, D), z(B, A), z(B, Ti),
-               z(B, Ti), e(B, datt), e(B, ks, 2, datt))
-    wta, wtd = to_col_tiles(sw.wta), to_col_tiles(sw.wtd)
+    dims = (B, T, Ti, P, E, A, D, datt, ks)
+    bf16 = int(W == torch.bfloat16)
     lib = _build.load("train_scan", _SIGNATURES)
+    nbytes = ctypes.c_size_t(0)
+    with torch.cuda.device(dev):
+        _build.check(lib, lib.train_scan_bwd_scratch(bf16, *dims,
+                                                     ctypes.byref(nbytes)),
+                     "train_scan_bwd_scratch")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     status = lib.train_scan_bwd(
-        int(W == torch.bfloat16),
-        *(x.data_ptr() for x in (wta, wtd, sw.wq, sw.wqt, sw.k2, sw.vf, mem,
-                                 proc, res.ga, res.gd, res.att_h, res.att_c,
-                                 res.dec_c, res.w, wcp, d_dec_h, d_ctx,
-                                 d_align)),
+        bf16,
+        *(x.data_ptr() for x in (sw.wta, sw.wtd, sw.wq, sw.wqc, sw.wqt,
+                                 sw.k2, sw.vf, mem, proc, res.ga, res.gd,
+                                 res.att_h, res.att_c, res.dec_c, res.w, wcp,
+                                 d_dec_h, d_ctx, d_align)),
         ka, kd, _scale(p_att), _scale(p_dec),
         *(x.data_ptr() for x in (out.dga, out.dgd, out.d_prenet, out.d_ctx,
                                  out.d_q, out.d_processed, out.d_k2, out.d_v,
-                                 *scratch)),
-        B, T, Ti, P, E, A, D, datt, ks,
-        torch.cuda.current_stream(dev).cuda_stream)
+                                 scratch)),
+        *dims, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "train_scan_bwd")
     backward_chain.launches += 1
     return out

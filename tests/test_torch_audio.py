@@ -160,3 +160,83 @@ def test_compression_round_trip():
             jnp.asarray(x.numpy()))), rtol=1e-6)
     np.testing.assert_allclose(mel.dynamic_range_decompression(c).numpy(),
                                np.maximum(x.numpy(), 1e-5), rtol=1e-6)
+
+
+def _rna_tf32(x):
+    """numpy: fp32 rounded to TF32 (nearest, ties away from zero, on the
+    low 13 mantissa bits), as PTX's cvt.rna.tf32.f32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.int32)
+    return ((bits + 0x1000) & ~0x1FFF).astype(np.int32).view(np.float32)
+
+
+def _emulated_log_mel(y, cfg, passes):
+    """The mel kernel's arithmetic in numpy: each frame folded about its
+    centre in fp32 (u[k] = x[k] + x[n - k], v[k] = x[k] - x[n - k] for
+    0 < k < n / 2; x[k] itself at 0 and n / 2), split into TF32 hi and lo as
+    the kernel splits it when it stages it, against the folded bases as the
+    wrapper packs them (``packed_bases``), products of TF32 values (exact in
+    fp32) summed in fp32. passes 3: lo hi + hi lo + hi hi (3xTF32); 1:
+    plain TF32."""
+    x = stft.frame_signal(torch.from_numpy(y), cfg.stft).numpy()
+    n_fft, n_bins = cfg.filter_length, cfg.stft.n_bins
+    half = n_fft // 2
+    mirror = np.zeros_like(x[..., :half + 1])
+    mirror[..., 1:half] = x[..., :half:-1]          # x[n - k], 0 < k < n/2
+    u = (x[..., :half + 1] + mirror).astype(np.float32)
+    v = (x[..., :half + 1] - mirror).astype(np.float32)
+    packs = []
+    for part in mel_kernel.packed_bases(cfg, "cpu"):
+        nt, kpad, _ = part.shape
+        p = part.numpy().reshape(nt, kpad, 2, 64).transpose(1, 2, 0, 3)
+        packs.append(p.reshape(kpad, 2, nt * 64)[:half + 1, :, :n_bins])
+    b_hi, b_lo = packs
+
+    def product(a, col):
+        a_hi = _rna_tf32(a)
+        a_lo = _rna_tf32(a - a_hi)
+        if passes == 1:
+            return a_hi @ b_hi[:, col]
+        return (a_lo @ b_hi[:, col] + a_hi @ b_lo[:, col]
+                + a_hi @ b_hi[:, col]).astype(np.float32)
+    re, im = product(u, 0), product(v, 1)
+    mag = np.sqrt(re * re + im * im)
+    mels = mag @ mel.mel_weights(cfg, "cpu").numpy()
+    return np.log(np.maximum(mels, 1e-5)).transpose(0, 2, 1)
+
+
+MEL_KERNEL_LOG_ATOL = 1e-4   # the mel kernel's limit on the card
+
+
+@pytest.mark.parametrize("cfg", [
+    mel.MelConfig(),
+    mel.MelConfig(filter_length=200, hop_length=50, win_length=160,
+                  n_mel_channels=20, sampling_rate=8000, mel_fmax=4000.0)],
+    ids=["n_fft1024", "n_fft200"])
+def test_mel_kernel_split_tf32_emulation_is_within_tolerance(cfg):
+    """3xTF32 on folded frames, as the mel kernel computes its DFT on the
+    tensor cores, emulated in numpy on a loud row and a quiet row (most mels
+    near the 1e-5 floor) stays within the card's log-domain limit of the
+    plain version (frames @ [cos | sin] in fp32). A single TF32 product is
+    reported beside it."""
+    r = np.random.RandomState(51)
+    y = ((r.rand(2, 12 * cfg.hop_length) * 2 - 1) * 0.3).astype(np.float32)
+    y[0] *= 1e-4
+    want = mel_kernel.mel_spectrogram_fused_plain(torch.from_numpy(y),
+                                                  cfg).numpy()
+    three = np.abs(_emulated_log_mel(y, cfg, 3) - want).max()
+    one = np.abs(_emulated_log_mel(y, cfg, 1) - want).max()
+    print(f"n_fft {cfg.filter_length}: 3xTF32 {three:.3e}, TF32 {one:.3e} "
+          f"in the log domain (limit {MEL_KERNEL_LOG_ATOL})")
+    assert three <= MEL_KERNEL_LOG_ATOL
+    assert one > three
+
+
+def test_mel_kernel_bases_need_a_centred_window():
+    """The kernel folds each frame about its centre, which needs the
+    windowed bases even and odd there: a window padded off centre (n_fft -
+    win_length odd) is refused when the bases are packed."""
+    hi, lo = mel_kernel.packed_bases(mel.MelConfig(), "cpu")
+    assert hi.shape == lo.shape == (9, 544, 128)
+    with pytest.raises(ValueError, match="symmetric"):
+        mel_kernel.packed_bases(mel.MelConfig(filter_length=256,
+                                              win_length=201), "cpu")

@@ -17,9 +17,10 @@ absolute (one bf16 rounding flip of an operand, 2^-8 relative, carried
 through a few steps of the recurrence). Single-utterance decoder chunk: as
 the batched one, with its own table (STEP_REL). int8 product: 1e-5 of the
 output's largest value (exact products, fp32 sums in another order). Mel
-kernel: 1e-4 in the log domain (fp32 sums of 1024 and 513 terms in another
-order; the log turns a relative error into an absolute one). TF32 is off
-for the plain versions' products.
+kernel: 1e-4 in the log domain (its DFT as three TF32 products, ~2^-22 of
+each product, and fp32 sums of 1024 and 513 terms in another order; the log
+turns a relative error into an absolute one). TF32 is off for the plain
+versions' products.
 """
 
 import importlib
@@ -230,9 +231,10 @@ def rel_errs(got, want, names):
     return out
 
 
-def scan_case(device, dtype, B, T_in, steps, dropout, seed=0):
-    """(sw, prenet, mem, proc, emask, keep, kw) at CFG's widths, ks 31."""
-    model = tm.Tacotron2(CFG, torch.Generator().manual_seed(seed)).to(device)
+def scan_case(device, dtype, B, T_in, steps, dropout, seed=0, cfg=CFG):
+    """(sw, prenet, mem, proc, emask, keep, kw) at cfg's widths (CFG:
+    128, ks 31)."""
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(seed)).to(device)
     sw = dv._pack(dv.core_weights(model), dtype)
     g = torch.Generator(device=device).manual_seed(seed + 1)
     rand = lambda *s: torch.randn(*s, generator=g, device=device) * 0.3
@@ -240,10 +242,12 @@ def scan_case(device, dtype, B, T_in, steps, dropout, seed=0):
                             device=device)
     lengths[0] = T_in
     mask = torch.arange(T_in, device=device)[None] < lengths[:, None]
-    mem, proc, emask = db.attention_inputs(rand(B, T_in, 128),
-                                           rand(B, T_in, 128), mask, dtype)
-    prenet = rand(steps, B, 128).to(dtype)
-    keep = (ts.keep_masks(g, steps, B, 128, 128, 0.1, 0.1) if dropout
+    E, datt = cfg.encoder_embedding_dim, cfg.attention_dim
+    mem, proc, emask = db.attention_inputs(rand(B, T_in, E),
+                                           rand(B, T_in, datt), mask, dtype)
+    prenet = rand(steps, B, cfg.prenet_dim).to(dtype)
+    keep = (ts.keep_masks(g, steps, B, cfg.attention_rnn_dim,
+                          cfg.decoder_rnn_dim, 0.1, 0.1) if dropout
             else None)
     return sw, prenet, mem, proc, emask, dict(keep=keep, p_att=0.1,
                                               p_dec=0.1)
@@ -264,9 +268,9 @@ def test_scan_forward_kernel_matches_plain(cuda, dtype, B, T_in, dropout):
     assert max(errs.values()) <= SCAN_REL[dtype], errs
 
 
-def _bwd_case(cuda, dtype, B, T_in, dropout):
-    sw, pre, mem, proc, emask, kw = scan_case(cuda, dtype, B, T_in, 6,
-                                              dropout)
+def _bwd_case(cuda, dtype, B, T_in, dropout, cfg=CFG, steps=6):
+    sw, pre, mem, proc, emask, kw = scan_case(cuda, dtype, B, T_in, steps,
+                                              dropout, cfg=cfg)
     res = ts.forward_residuals_plain(sw, pre, mem, proc, emask, **kw)
     g = torch.Generator(device=cuda).manual_seed(5)
     cot = lambda x: torch.randn(x.shape, generator=g, device=cuda) * 0.1
@@ -288,15 +292,38 @@ def test_scan_backward_kernel_matches_plain(cuda, dtype, B, T_in, dropout):
     assert max(errs.values()) <= SCAN_REL[dtype], errs
 
 
+# The bf16 chain on the tensor cores: rows not a multiple of the product's
+# 16-row fragments (1, 13), a full 128-row tile, encoder lengths no
+# multiple of its 32-position tiles, and products whose column count
+# (P+E+A = 96+136+128, A+E+D = 128+136+128) leaves a ragged column tile.
+RAGGED = CFG.replace(prenet_dim=96, encoder_embedding_dim=136)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T_in,cfg", [(1, 37, CFG), (8, 64, RAGGED),
+                                        (13, 45, RAGGED), (128, 70, CFG)],
+                         ids=["B1", "B8-ragged", "B13-ragged", "B128"])
+def test_scan_backward_tensor_core_shapes_match_plain(cuda, B, T_in, cfg):
+    """Row 2 at bf16 with dropout, every output within SCAN_REL."""
+    sw, res, mem, proc, cots, kw = _bwd_case(cuda, torch.bfloat16, B, T_in,
+                                             True, cfg=cfg)
+    got = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
+    want = ts.backward_chain_plain(sw, res, mem, proc, *cots, **kw)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, ts.ChainGrads._fields)
+    assert max(errs.values()) <= SCAN_REL[torch.bfloat16], errs
+
+
 @pytest.mark.gpu
 def test_scan_backward_accumulators_are_deterministic(cuda):
-    """Two runs of the backward kernel give the same bits of d_K2, d_v and
-    d_processed (fixed-order sums, no atomics)."""
-    sw, res, mem, proc, cots, kw = _bwd_case(cuda, torch.bfloat16, 13, 20,
+    """Two runs of the backward kernel at B=128 give the same bits of d_K2,
+    d_v and d_processed, and of the gate and query cotangents (fixed-order
+    sums of the K slices and tiles, no atomics)."""
+    sw, res, mem, proc, cots, kw = _bwd_case(cuda, torch.bfloat16, 128, 45,
                                              True)
     a = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
     b = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
-    for name in ("d_k2", "d_v", "d_processed"):
+    for name in ("d_k2", "d_v", "d_processed", "dga", "dgd", "d_q"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 
 
@@ -449,11 +476,13 @@ def test_int8_kernel_rejects_mixed_devices(cuda):
 
 
 # whole tiles of 64 frames, a ragged last tile, fewer frames than a tile,
-# and a narrow config whose depth is no multiple of the staged chunk
+# a narrow config whose depth is no multiple of the staged chunk (and whose
+# 101 bins leave a ragged bin tile, as 513 do), and the front end's batch of
+# 16 x 6 s (1.5 tiles of frames straddle each pair of waveforms)
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,cfg", [
     (2, 127 * 256, MelConfig()), (3, 10000, MelConfig()),
-    (1, 700, MelConfig()),
+    (1, 700, MelConfig()), (16, 6 * 22050, MelConfig()),
     (2, 3000, MelConfig(filter_length=200, hop_length=50, win_length=160,
                         n_mel_channels=20, sampling_rate=8000,
                         mel_fmax=4000.0))])
@@ -475,8 +504,12 @@ def test_mel_kernel_matches_plain(cuda, B, S, cfg):
 
 @pytest.mark.gpu
 def test_mel_kernel_rejects_what_it_does_not_take(cuda):
+    """More than 128 mels, and too few samples to reflect-pad; its shared
+    memory no longer depends on the hop, so hop 1024 is taken."""
     y = torch.zeros(1, 4000, device=cuda)
     with pytest.raises(ValueError, match="128 mel"):
         mk.mel_spectrogram_fused(y, MelConfig(n_mel_channels=160))
-    with pytest.raises(ValueError, match="shared memory"):
-        mk.mel_spectrogram_fused(y, MelConfig(hop_length=1024))
+    with pytest.raises(ValueError, match="too few"):
+        mk.mel_spectrogram_fused(y[:, :512], MelConfig())
+    got = mk.mel_spectrogram_fused(y, MelConfig(hop_length=1024))
+    assert got.shape == (1, 80, 1 + 4000 // 1024)

@@ -296,3 +296,60 @@ def test_plain_versions_count_calls():
     assert (ts.forward_residuals.launches, ts.backward_chain.launches) == counts
     assert ts.forward_residuals_plain.calls == calls[0] + 1
     assert ts.backward_chain_plain.calls == calls[1] + 1
+
+
+TILE = 32   # encoder positions per tile of the bf16 chain (AB_TT)
+
+
+@pytest.mark.parametrize("T_in,ks", [(24, 7), (70, 31), (128, 31)])
+def test_tiled_location_identities_match_the_conv_form(T_in, ks):
+    """The forms the bf16 backward chain computes, tile by tile of 32
+    positions, against ``backward_chain_plain``'s conv form at fp32 (1e-5
+    of each field's largest value): the energy's location term as an im2col
+    window tile @ K2, d_K2 as windows^T @ W(dm) summed over tiles, and the
+    window cotangents as shifted sums of G = W(dm) @ K2^T, each tile's
+    partial covering its positions and a halo of (ks - 1) / 2 on each side,
+    the partials added in tile order."""
+    import torch.nn.functional as F
+    r = np.random.RandomState(T_in + ks)
+    Bn, datt, pad = 3, 64, (ks - 1) // 2
+    win = torch.from_numpy(r.rand(Bn, 2, T_in).astype(np.float32))
+    k2 = torch.from_numpy(r.randn(ks, 2, datt).astype(np.float32) * .1)
+    dm = torch.from_numpy(r.randn(Bn, T_in, datt).astype(np.float32))
+    kw = k2.permute(2, 1, 0)                         # (datt, 2, ks)
+    loc_want = F.conv1d(win, kw, padding=pad).transpose(1, 2)
+    dk2_want = torch.nn.grad.conv1d_weight(
+        win, kw.shape, dm.transpose(1, 2), padding=pad).permute(2, 1, 0)
+    dwin_want = torch.nn.grad.conv1d_input(win.shape, kw, dm.transpose(1, 2),
+                                           padding=pad)
+    nt, wl = -(-T_in // TILE), TILE + ks - 1
+    k2m = k2.reshape(2 * ks, datt)                   # rows 2k + c
+    padded = F.pad(win, (pad, pad + nt * TILE - T_in))
+    loc = torch.zeros(Bn, nt * TILE, datt)
+    dk2 = torch.zeros(2 * ks, datt)
+    parts = torch.zeros(Bn, nt, 2, wl)
+    dmp = F.pad(dm, (0, 0, 0, nt * TILE - T_in))
+    for ti in range(nt):
+        t0 = ti * TILE
+        # im2col: cols[b, t, 2k + c] = win[b, c, t0 + t + k - pad]
+        cols = torch.stack([padded[:, :, t0 + k:t0 + k + TILE]
+                            for k in range(ks)], dim=1)   # (B, ks, 2, TT)
+        cols = cols.permute(0, 3, 1, 2).reshape(Bn, TILE, 2 * ks)
+        loc[:, t0:t0 + TILE] = cols @ k2m
+        tile_dm = dmp[:, t0:t0 + TILE]
+        dk2 += torch.einsum("btk,btd->kd", cols, tile_dm)
+        g = tile_dm @ k2m.t()                              # (B, TT, 2 ks)
+        for jl in range(wl):
+            for k in range(ks):
+                tl = jl - k
+                if 0 <= tl < TILE:
+                    parts[:, ti, :, jl] += g[:, tl, 2 * k:2 * k + 2]
+    dwin = torch.zeros(Bn, 2, T_in)
+    for j in range(T_in):
+        for ti in range(nt):
+            jl = j - (ti * TILE - pad)
+            if 0 <= jl < wl:
+                dwin[:, :, j] += parts[:, ti, :, jl]
+    assert_fields([loc[:, :T_in], dk2.reshape(ks, 2, datt), dwin],
+                  [loc_want, dk2_want, dwin_want],
+                  ["location term", "d_K2", "window cotangents"], 1e-5)
