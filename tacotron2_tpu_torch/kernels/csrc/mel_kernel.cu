@@ -17,34 +17,39 @@
 // TF32 products per product, a_lo b_hi + a_hi b_lo + a_hi b_hi, with
 // x_hi = rna(x) and x_lo = rna(x - x_hi), which keeps fp32-level accuracy
 // (plain TF32 keeps ~10 mantissa bits; near the 1e-5 floor the log turns
-// that into errors above the tolerance). The windowed bases are even and
-// odd about n_fft / 2 (a symmetric window: C[n - k] = C[k], S[n - k] =
-// -S[k]), so each product is taken at half the depth on folded frames,
-//   Re = sum_{k <= n/2} u[k] C[k],  u[k] = x[k] + x[n - k] (x[k] at 0, n/2)
-//   Im = sum_{k <  n/2} v[k] S[k],  v[k] = x[k] - x[n - k] (0 at 0, n/2),
-// the folds in fp32 before the split: half the tensor-core work of
-// frames @ [cos | sin] for the same sums, in another order.
+// that into errors above the tolerance). Each product is taken on frames
+// folded about n_fft / 2, u[k] = x[k] + x[n - k] and v[k] = x[k] - x[n - k]
+// for 0 < 2k < n (u[k] = x[k], v[k] = 0 where row k has no partner), in
+// fp32 before the split, against the bases' even and odd parts Ce, Co, Se,
+// So ((B[k] +- B[n - k]) / 2; the wrapper makes them):
+//   Re = sum_{k <= n/2} u[k] Ce[k] + v[k] Co[k]
+//   Im = sum_{k <= n/2} v[k] So[k] + u[k] Se[k].
+// A window symmetric about the frame's centre (n_fft - win_length even)
+// makes Co and Se zero: one pass, half the tensor-core work of frames @
+// [cos | sin] for the same sums, in another order. Otherwise a second pass
+// over the same depth takes the Co and Se terms (the packed bases' part 1).
 //
 // A block owns MEL_TF frames of the flattened (batch, frame) index, so the
 // grid is ceil(B * T / 64) blocks (130 at 16 x 6 s: one wave on 132 SMs),
-// and walks every bin tile of MEL_NB bins: for each, the folded depth in
-// chunks of MEL_KC. The frames of a chunk are read from the waveform (L1/L2;
-// the next chunk's loads are in flight during this one's products), folded,
-// split into hi and lo and stored in padded [MEL_TF][MEL_KC + 4] tiles read
-// by ldmatrix without bank conflicts. The folded bases, split once by the
-// wrapper and packed per bin tile as [cos 64 | sin 64] rows (zero past
-// n_bins and the folded depth), stream in by cp.async through a ring of
-// MEL_STAGES chunks whose rows are padded to 136 floats (B fragments
-// without bank conflicts); only the columns that hold bins are loaded.
-// 8 warps, 2 x 4: a warp holds 32 frames x 16 bins of real and imaginary
-// sums, its three products ordered so that no two in a row add to the same
-// sums; octets of bins past n_bins are skipped. At the end of a bin tile
-// the magnitudes go to shared memory and their mel product (fp32 CUDA
-// cores, ~2% of the work) is added to per-thread mel sums (4 frames x 8
-// mels). On an NVIDIA H100 80GB HBM3 at 700 W it runs at ~20% of its
-// 3xTF32 bound (PERF.md): mma.sync's TF32 rate and the fragment loads from
-// shared memory, not the bases' stream from L2 (halving that stream with
-// 128-frame blocks made it slower), are what is left.
+// and walks every bin tile of MEL_NB bins: for each, each part's folded
+// depth in chunks of MEL_KC. The frames of a chunk are read from the
+// waveform (L1/L2; the next chunk's loads are in flight during this one's
+// products), folded, split into hi and lo and stored in padded
+// [MEL_TF][MEL_KC + 4] tiles read by ldmatrix without bank conflicts. The
+// folded bases, split once by the wrapper and packed per bin tile and part
+// as [cos 64 | sin 64] rows (zero past n_bins and the folded depth), stream
+// in by cp.async through a ring of MEL_STAGES chunks whose rows are padded
+// to 136 floats (B fragments without bank conflicts); only the columns that
+// hold bins are loaded. 8 warps, 2 x 4: a warp holds 32 frames x 16 bins of
+// real and imaginary sums, its three products ordered so that no two in a
+// row add to the same sums; octets of bins past n_bins are skipped. At the
+// end of a bin tile the magnitudes go to shared memory and their mel
+// product (fp32 CUDA cores, ~2% of the work) is added to per-thread mel
+// sums (4 frames x 8 mels). On an NVIDIA H100 80GB HBM3 at 700 W it runs at
+// ~10% of its 3xTF32 bound over the folded depth (PERF.md): mma.sync's TF32
+// rate and the fragment loads from shared memory, not the bases' stream
+// from L2 (halving that stream with 128-frame blocks made it slower), are
+// what is left.
 #include <math.h>
 
 #include "mma.cuh"
@@ -67,16 +72,16 @@ struct MelSmem {
   float mag[MEL_TF * MEL_MLD];
 };
 
-// Chunk q of the packed bases (tile q / nk, depth chunk q % nk; chunks are
+// Chunk q of the packed bases (tile q / nkp of nkp chunks; chunks are
 // contiguous) into ring slot q % MEL_STAGES: 2 x MEL_KC rows of [cos | sin],
 // 16 bytes per copy, only the columns of the tile's bins.
 __device__ __forceinline__ void mel_load_basis(MelSmem& s, const float* bhi,
                                                const float* blo, int q,
-                                               int nk, int n_bins) {
+                                               int nkp, int n_bins) {
   const size_t off = (size_t)q * MEL_KC * 2 * MEL_NB;
   constexpr int ROW = 2 * MEL_NB / 4;                  // 16-byte pieces a row
   constexpr int PER = MEL_KC * ROW;
-  const int nb = min(MEL_NB, n_bins - (q / nk) * MEL_NB);
+  const int nb = min(MEL_NB, n_bins - (q / nkp) * MEL_NB);
   const int cols = (nb + 3) / 4;                       // pieces of each half
   const int slot = q % MEL_STAGES;
   for (int i = threadIdx.x; i < 2 * PER; i += MEL_THREADS) {
@@ -93,7 +98,7 @@ __global__ void __launch_bounds__(MEL_THREADS)
 mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
            const float* __restrict__ blo, const float* __restrict__ melT,
            float* __restrict__ out, int B, int S, int T, int n_fft, int hop,
-           int n_bins, int n_mels) {
+           int n_bins, int n_mels, int parts) {
   extern __shared__ __align__(16) unsigned char sm_raw[];
   MelSmem& s = *reinterpret_cast<MelSmem*>(sm_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -103,7 +108,8 @@ mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
   const int half = n_fft / 2;
   const int nk = (half + 1 + MEL_KC - 1) / MEL_KC;   // folded depth
   const int ntiles = (n_bins + MEL_NB - 1) / MEL_NB;
-  const int nq = nk * ntiles;
+  const int nkp = nk * parts;                        // chunks of a bin tile
+  const int nq = nkp * ntiles;
 
   // the frame and the 8 folded depths this thread stages in each chunk
   const int sf = tid >> 2, sk = (tid & 3) * 8;
@@ -123,7 +129,7 @@ mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
     for (int i = 0; i < 8; ++i) {
       const int k = kc * MEL_KC + sk + i;
       xa[i] = (f_in && k <= half) ? sample(k) : 0.0f;
-      xb[i] = (f_in && k > 0 && k < half) ? sample(n_fft - k) : 0.0f;
+      xb[i] = (f_in && k > 0 && 2 * k < n_fft) ? sample(n_fft - k) : 0.0f;
     }
   };
 
@@ -138,13 +144,14 @@ mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
   float acc[2][2][2][4];   // [m tile][bin octet][cos, sin][fragment]
 #pragma unroll
   for (int st = 0; st < MEL_STAGES - 1; ++st) {
-    if (st < nq) mel_load_basis(s, bhi, blo, st, nk, n_bins);
+    if (st < nq) mel_load_basis(s, bhi, blo, st, nkp, n_bins);
     cp_async_commit();
   }
   fetch(0);
   for (int q = 0; q < nq; ++q) {
-    const int kc = q % nk, bin0 = (q / nk) * MEL_NB;
-    if (kc == 0) {
+    const int qt = q % nkp, bin0 = (q / nkp) * MEL_NB;
+    const bool swap = qt >= nk;   // part 1: cos takes v, sin takes u
+    if (qt == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -167,7 +174,7 @@ mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
       s.v_lo[at] = __uint_as_float(l);
     }
     if (q + MEL_STAGES - 1 < nq)
-      mel_load_basis(s, bhi, blo, q + MEL_STAGES - 1, nk, n_bins);
+      mel_load_basis(s, bhi, blo, q + MEL_STAGES - 1, nkp, n_bins);
     cp_async_commit();
     if (q + 1 < nq) fetch((q + 1) % nk);
     cp_async_wait<MEL_STAGES - 1>();
@@ -180,16 +187,21 @@ mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
     const int r = lane & 7, mi = lane >> 3;
 #pragma unroll
     for (int k8 = 0; k8 < MEL_KC; k8 += 8) {
-      // A: [cos, sin][hi, lo][m tile]; cos takes the sums, sin the differences
+      // A: [cos, sin][hi, lo][m tile]; in part 0 cos takes the sums and
+      // sin the differences, in part 1 the other way round
       uint32_t a[2][2][2][4];
+      const float* ac_hi = swap ? s.v_hi : s.u_hi;
+      const float* ac_lo = swap ? s.v_lo : s.u_lo;
+      const float* as_hi = swap ? s.u_hi : s.v_hi;
+      const float* as_lo = swap ? s.u_lo : s.v_lo;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int at = (wm * 32 + i * 16 + r + (mi & 1) * 8) * MEL_ALD + k8 +
                        (mi >> 1) * 4;
-        ldmatrix_x4(a[0][0][i], s.u_hi + at);
-        ldmatrix_x4(a[0][1][i], s.u_lo + at);
-        ldmatrix_x4(a[1][0][i], s.v_hi + at);
-        ldmatrix_x4(a[1][1][i], s.v_lo + at);
+        ldmatrix_x4(a[0][0][i], ac_hi + at);
+        ldmatrix_x4(a[0][1][i], ac_lo + at);
+        ldmatrix_x4(a[1][0][i], as_hi + at);
+        ldmatrix_x4(a[1][1][i], as_lo + at);
       }
       uint32_t b[2][2][2][2];   // [octet][cos, sin][hi, lo][fragment]
 #pragma unroll
@@ -219,7 +231,7 @@ mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
         }
       }
     }
-    if (kc != nk - 1) continue;
+    if (qt != nkp - 1) continue;
     // magnitudes of the tile: cos and sin sums sit in the same registers
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -283,17 +295,20 @@ int mel_limits(int n_mels, size_t* need, int* have) {
 }
 
 // y (B, S) fp32; bhi, blo the rows k <= n_fft / 2 of the windowed cos
-// and sin bases split into TF32 hi and lo parts, packed (ceil(n_bins / 64),
-// kpad, [cos 64 | sin 64]) with zeros past n_bins and past those rows (kpad
-// = n_fft / 2 + 1 rounded up to 32); melT (n_bins, n_mels); out (B, n_mels,
-// T) with T = 1 + S / hop frames. Needs an even n_fft, a window symmetric
-// about n_fft / 2 and S > n_fft / 2 (reflect padding). Returns cudaError_t.
+// and sin bases' even and odd parts split into TF32 hi and lo parts, packed
+// (ceil(n_bins / 64), parts, kpad, [cos 64 | sin 64]) with zeros past n_bins
+// and past those rows (kpad = n_fft / 2 + 1 rounded up to 32): part 0
+// [Ce | So], part 1 (parts = 2, a window not symmetric about n_fft / 2)
+// [Co | Se]; melT (n_bins, n_mels); out (B, n_mels, T) with T = 1 + S / hop
+// frames. Needs S > n_fft / 2 (reflect padding). Returns cudaError_t.
 int mel_spectrogram(const void* y, const void* bhi, const void* blo,
                     const void* melT, void* out, int B, int S, int T,
-                    int n_fft, int hop, int n_bins, int n_mels, void* stream) {
+                    int n_fft, int hop, int n_bins, int n_mels, int parts,
+                    void* stream) {
   size_t need;
   int have;
-  if (S <= n_fft / 2 || n_fft % 2 || mel_limits(n_mels, &need, &have) != 0)
+  if (S <= n_fft / 2 || parts < 1 || parts > 2 ||
+      mel_limits(n_mels, &need, &have) != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
@@ -301,7 +316,8 @@ int mel_spectrogram(const void* y, const void* bhi, const void* blo,
   const int grid = (B * T + MEL_TF - 1) / MEL_TF;
   mel_kernel<<<grid, MEL_THREADS, need, (cudaStream_t)stream>>>(
       (const float*)y, (const float*)bhi, (const float*)blo,
-      (const float*)melT, (float*)out, B, S, T, n_fft, hop, n_bins, n_mels);
+      (const float*)melT, (float*)out, B, S, T, n_fft, hop, n_bins, n_mels,
+      parts);
   return (int)cudaGetLastError();
 }
 

@@ -58,14 +58,16 @@
 // along T_in into (32 positions x 2 rows) blocks whose location products
 // (the energy rebuild, d_K2 and the window cotangents) are bf16 mma.sync
 // products; dh1's W(dq) @ wq^T one product over all rows with the cell
-// backward in its epilogue. At fp32 (the step check) the first design
+// backward in its epilogue. At fp32 (the step check), and at bf16 shapes
+// the tensor-core kernels do not take (tc_shapes_ok), the first design
 // stays: lstm_gates_bwd_kernel, tile_product_kernel (CUDA cores),
-// attn_bwd_kernel (one block per row), the second product and the
-// fixed-order sums of the rows' d_K2 and d_v. Every accumulator is
-// deterministic: no floating-point atomics; an element of d_processed
-// belongs to one thread at every step; the products' K slices, the tiles'
-// partials of dq and the window cotangents, and the blocks' d_K2 and d_v
-// are added in a fixed order, so two runs give the same bits.
+// attn_bwd_kernel (one block per row, T_in <= ~368 by its shared memory),
+// the second product and the fixed-order sums of the rows' d_K2 and d_v.
+// Every accumulator is deterministic: no floating-point atomics; an element
+// of d_processed belongs to one thread at every step; the products' K
+// slices, the tiles' partials of dq and the window cotangents, and the
+// blocks' d_K2 and d_v are added in a fixed order, so two runs give the
+// same bits.
 #include <math.h>
 
 #include "attention.cuh"
@@ -1078,10 +1080,10 @@ struct Bwd {
   int B, T, Ti, P, E, A, D, datt, ks;
 };
 
-// The fp32 chain's scratch: (dxd, dxa, ddc, dac, c_dw, c_dwc, dv_part,
+// The CUDA-core chain's scratch: (dxd, dxa, ddc, dac, c_dw, c_dwc, dv_part,
 // k2_part); returns the number of floats.
-static size_t carve_f32(float** p, float* base, int B, int Ti, int P, int E,
-                        int A, int D, int datt, int ks) {
+static size_t carve_cc(float** p, float* base, int B, int Ti, int P, int E,
+                       int A, int D, int datt, int ks) {
   const size_t sizes[] = {(size_t)B * (A + E + D), (size_t)B * (P + E + A),
                           (size_t)B * D, (size_t)B * A, (size_t)B * Ti,
                           (size_t)B * Ti, (size_t)B * datt,
@@ -1094,13 +1096,13 @@ static size_t carve_f32(float** p, float* base, int B, int Ti, int P, int E,
   return off;
 }
 
-// The fp32 chain: the CUDA-core kernels of the first design.
-static cudaError_t run_bwd_f32(const Bwd& r, float* scratch, cudaStream_t s) {
-  typedef float W;
+// The CUDA-core chain: the kernels of the first design.
+template <typename W>
+static cudaError_t run_bwd_cc(const Bwd& r, float* scratch, cudaStream_t s) {
   const int NO_D = r.A + r.E + r.D, NO_A = r.P + r.E + r.A;
   const int KD = 4 * r.D, KA = 4 * r.A;
   float* sc[8];
-  carve_f32(sc, scratch, r.B, r.Ti, r.P, r.E, r.A, r.D, r.datt, r.ks);
+  carve_cc(sc, scratch, r.B, r.Ti, r.P, r.E, r.A, r.D, r.datt, r.ks);
   float *dxd = sc[0], *dxa = sc[1], *ddc = sc[2], *dac = sc[3];
   float *c_dw = sc[4], *c_dwc = sc[5], *dv_part = sc[6], *k2_part = sc[7];
   cudaError_t err = tile_product_prepare<W>(KD > KA ? KD : KA);
@@ -1208,24 +1210,30 @@ static cudaError_t run_bwd_tc(const Bwd& r, float* scratch, int sms,
                c.ddc, dgd + 4 * td, start ? nullptr : c.dxd, r.B, r.D, r.A,
                r.E};
     bwd_gates_kernel<<<g_gates, 256, 0, s>>>(gt);
-    tc_product(dgd + 4 * td, 4 * r.D, r.B, 4 * r.D, (const bf16*)r.wtd, NO_D,
-               c.sd, TcOut{c.dxd, c.dxd_p, cnt_d, nullptr, 0, 0}, s);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = tc_product(dgd + 4 * td, 4 * r.D, r.B, 4 * r.D, (const bf16*)r.wtd,
+                     NO_D, c.sd, TcOut{c.dxd, c.dxd_p, cnt_d, nullptr, 0, 0},
+                     s);
+    if (err != cudaSuccess) return err;
     RowsTc rt{c.dxd, start ? nullptr : c.dxa, r.dctx_o + te, r.dalign + tw,
               (const bf16*)r.mem, r.wst + tw, start ? nullptr : c.wpart,
               c.c_dwc, c.de, dctx + te, r.B, r.Ti, r.P, r.E, r.A, r.D, c.nt,
               c.wl, (r.ks - 1) / 2};
     attn_rows_kernel<<<r.B, ROW_THREADS, sm_rows, s>>>(rt);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     TilesTc tt{c.q + t * B * r.datt, c.de, t ? r.wst + tw - B * r.Ti : nullptr,
                t ? r.wcp + tw : nullptr, (const bf16*)r.k2, r.vf,
                (const bf16*)r.proc, r.dproc, c.wpart, c.dq, c.k2acc, c.dvacc,
                r.B, r.Ti, r.datt, r.ks, c.nt, c.wl};
     attn_tiles_kernel<<<g_tiles, TILE_THREADS, sizeof(TilesSmem), s>>>(tt);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     LstmTc lt{c.dq, r.dq + t * B * r.datt, (const bf16*)r.wqt, c.dxd,
               start ? nullptr : c.dxa, ga + 4 * ta, r.attc + ta,
               t ? r.attc + ta - B * r.A : nullptr,
               r.keep_a ? r.keep_a + ta : nullptr, r.s_att, c.dac,
               dga + 4 * ta, r.B, r.P, r.E, r.A, r.D, r.datt, c.nt};
     attn_lstm_kernel<<<g_lstm, LSTM_THREADS, sizeof(LstmSmem), s>>>(lt);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     err = tc_product(dga + 4 * ta, 4 * r.A, r.B, 4 * r.A, (const bf16*)r.wta,
                      NO_A, c.sa,
                      TcOut{c.dxa, c.dxa_p, cnt_a, r.dpre + t * B * r.P, r.P,
@@ -1238,8 +1246,10 @@ static cudaError_t run_bwd_tc(const Bwd& r, float* scratch, int sms,
   return cudaGetLastError();
 }
 
-// Shapes the bf16 chain takes: LSTM widths in whole K chunks of the
-// product, an attention width of 64 or 128, at most AB_KC taps.
+// Shapes the tensor-core chain takes: LSTM widths in whole K chunks of the
+// product, an attention width of 64 or 128, at most AB_KC / 2 taps, an
+// encoder width in whole 16-byte loads. Other bf16 shapes take the
+// CUDA-core chain.
 static bool tc_shapes_ok(int E, int A, int D, int datt, int ks) {
   return A % TC_KC == 0 && D % TC_KC == 0 && datt % 64 == 0 &&
          datt <= AB_DMAX && 2 * ks <= AB_KC && E % 8 == 0;
@@ -1271,11 +1281,11 @@ int train_scan_fwd(int bf16, const void* w1, const void* b1, const void* w2,
   return (int)(bf16 ? run_fwd<__nv_bfloat16>(f, s) : run_fwd<float>(f, s));
 }
 
-// Bytes of scratch the backward chain needs at these shapes (bf16 != 0:
-// the tensor-core chain). Returns cudaError_t.
+// Bytes of scratch the backward chain needs at these shapes (bf16 != 0
+// and tc_shapes_ok: the tensor-core chain). Returns cudaError_t.
 int train_scan_bwd_scratch(int bf16, int B, int T, int Ti, int P, int E,
                            int A, int D, int datt, int ks, size_t* bytes) {
-  if (bf16) {
+  if (bf16 && tc_shapes_ok(E, A, D, datt, ks)) {
     const int sms = device_sms();
     if (sms == 0) return (int)cudaErrorNoDevice;
     TcChain c;
@@ -1283,7 +1293,7 @@ int train_scan_bwd_scratch(int bf16, int B, int T, int Ti, int P, int E,
              carve_tc(&c, nullptr, sms, B, T, Ti, P, E, A, D, datt, ks);
   } else {
     float* p[8];
-    *bytes = sizeof(float) * carve_f32(p, nullptr, B, Ti, P, E, A, D, datt, ks);
+    *bytes = sizeof(float) * carve_cc(p, nullptr, B, Ti, P, E, A, D, datt, ks);
   }
   return 0;
 }
@@ -1305,9 +1315,7 @@ int train_scan_bwd(int bf16, const void* wta, const void* wtd, const void* wq,
                    void* dctx, void* dq, void* dproc, void* dk2, void* dv,
                    void* scratch, int B, int T, int Ti, int P, int E, int A,
                    int D, int datt, int ks, void* stream) {
-  if (ks % 2 == 0) return (int)cudaErrorInvalidValue;
-  if (bf16 ? !tc_shapes_ok(E, A, D, datt, ks)
-           : (datt > AB_THREADS || AB_THREADS % datt))
+  if (ks % 2 == 0 || datt > AB_THREADS || AB_THREADS % datt)
     return (int)cudaErrorInvalidValue;
   Bwd r{wta, wtd, wq, wqc, wqt, k2, (const float*)vf, mem, proc, ga, gd,
         atth, (const float*)attc, (const float*)decc, (const float*)wst,
@@ -1323,8 +1331,10 @@ int train_scan_bwd(int bf16, const void* wta, const void* wtd, const void* wq,
   if (err != 0) return err;
   cudaError_t e = cudaMemsetAsync(scratch, 0, bytes, s);
   if (e != cudaSuccess) return (int)e;
-  if (bf16) return (int)run_bwd_tc(r, (float*)scratch, device_sms(), s);
-  return (int)run_bwd_f32(r, (float*)scratch, s);
+  if (bf16 && tc_shapes_ok(E, A, D, datt, ks))
+    return (int)run_bwd_tc(r, (float*)scratch, device_sms(), s);
+  if (bf16) return (int)run_bwd_cc<__nv_bfloat16>(r, (float*)scratch, s);
+  return (int)run_bwd_cc<float>(r, (float*)scratch, s);
 }
 
 const char* error_string(int err) {

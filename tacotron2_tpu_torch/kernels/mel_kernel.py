@@ -8,7 +8,8 @@ log(clamp 1e-5), with the (frames x bins) magnitude never in device memory.
 fp32 in and out; the kernel takes each DFT product as three TF32 products
 (3xTF32: the operands split into TF32 hi and lo parts), which keeps fp32
 accuracy on the tensor cores, on frames folded about their centre (half the
-depth: the windowed bases are even and odd there).
+depth: with a centred window the windowed bases are even and odd there; an
+off-centre window takes a second pass over the same depth).
 
 ``mel_spectrogram_fused`` takes the kernel (``csrc/mel_kernel.cu``) for a
 CUDA tensor and the plain version for a CPU tensor; nothing else picks
@@ -33,7 +34,7 @@ from tacotron2_tpu_torch.audio.stft import (STFTConfig, dft_basis,
 from tacotron2_tpu_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"mel_spectrogram": [_P] * 5 + [_I] * 7 + [_P],
+_SIGNATURES = {"mel_spectrogram": [_P] * 5 + [_I] * 8 + [_P],
                "mel_limits": [_I, ctypes.POINTER(ctypes.c_size_t),
                               ctypes.POINTER(ctypes.c_int)]}
 _NB, _KC = 64, 32   # MEL_NB bins per tile, MEL_KC depth per chunk
@@ -55,30 +56,41 @@ def _packed(stft_cfg: STFTConfig, device: str):
     cos_b, sin_b = dft_basis(stft_cfg, device)
     n_fft, n_bins = cos_b.shape
     half = n_fft // 2
-    even = (cos_b[1:half] - cos_b.flip(0)[:half - 1]).abs().max()
-    odd = (sin_b[1:half] + sin_b.flip(0)[:half - 1]).abs().max()
-    if n_fft % 2 or max(float(even), float(odd)) > 1e-6:
-        raise ValueError(f"the mel kernel folds the DFT about n_fft / 2: it "
-                         f"needs an even n_fft and a window symmetric about "
-                         f"its centre (n_fft - win_length even), got n_fft "
-                         f"{n_fft}, win_length {stft_cfg.win_length}")
-    cos_f, sin_f = cos_b[:half + 1].clone(), sin_b[:half + 1].clone()
-    sin_f[0], sin_f[half] = 0.0, 0.0     # sin(0) and sin(pi n)
+    paired = torch.arange(1, half + 1, device=cos_b.device)
+    paired = paired[2 * paired < n_fft]        # rows k paired with n - k
+
+    def fold(b):                               # rows k <= n / 2: even, odd
+        even, odd = b[:half + 1].clone(), torch.zeros_like(b[:half + 1])
+        even[paired] = (b[paired] + b[n_fft - paired]) / 2
+        odd[paired] = (b[paired] - b[n_fft - paired]) / 2
+        return even, odd
+    cos_e, cos_o = fold(cos_b)
+    sin_e, sin_o = fold(sin_b)
+    # a window symmetric about the frame's centre leaves cos odd and sin
+    # even zero (sin even to rounding at its unpaired rows, sin 0 and sin pi)
+    parts = [(cos_e, sin_o)]
+    if max(float(cos_o.abs().max()), float(sin_e.abs().max())) > 1e-6:
+        parts.append((cos_o, sin_e))
     nt, kpad = -(-n_bins // _NB), -(-(half + 1) // _KC) * _KC
     pad = lambda b: torch.nn.functional.pad(
         b, (0, nt * _NB - n_bins, 0, kpad - half - 1)).reshape(kpad, nt, _NB)
-    both = torch.cat([pad(cos_f), pad(sin_f)], dim=2)   # (kpad, nt, 2 * NB)
-    return tuple(p.permute(1, 0, 2).contiguous() for p in split_tf32(both))
+    both = torch.stack([torch.cat([pad(c), pad(s)], dim=2)
+                        for c, s in parts])    # (parts, kpad, nt, 2 * NB)
+    return tuple(p.permute(2, 0, 1, 3).contiguous() for p in split_tf32(both))
 
 
 def packed_bases(cfg: MelConfig, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The windowed cos and sin bases as the kernel streams them: rows
-    k <= n_fft / 2 only (the kernel folds each frame about its centre, the
-    bases being even and odd there), split into TF32 hi and lo parts, each
-    (ceil(n_bins / 64), n_fft / 2 + 1 rounded up to 32, [cos 64 | sin 64])
-    with zeros past n_bins and those rows. Made once per STFT config and
-    device, as the bases themselves; raises where the window is not
-    symmetric about the frame's centre."""
+    """The windowed cos and sin bases as the kernel streams them, folded
+    about the frame's centre: rows k <= n_fft / 2 of their even parts (C[k]
+    + C[n - k]) / 2 and odd parts (C[k] - C[n - k]) / 2 (row k itself where
+    it has no partner), split into TF32 hi and lo parts, each
+    (ceil(n_bins / 64), parts, n_fft / 2 + 1 rounded up to 32,
+    [cos 64 | sin 64]) with zeros past n_bins and those rows. Part 0 holds
+    [cos even | sin odd], which take the folded sums and differences of a
+    frame; a window that is not symmetric about the frame's centre (n_fft -
+    win_length odd) adds part 1, [cos odd | sin even], which take them the
+    other way round. Made once per STFT config and device, as the bases
+    themselves."""
     return _packed(cfg.stft, str(device))
 
 
@@ -136,7 +148,7 @@ def mel_spectrogram_fused(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
             y.data_ptr(), b_hi.data_ptr(), b_lo.data_ptr(),
             mel_t.data_ptr(), out.data_ptr(), B, S, T, cfg.filter_length,
             cfg.hop_length, cfg.stft.n_bins, cfg.n_mel_channels,
-            torch.cuda.current_stream(y.device).cuda_stream)
+            b_hi.shape[1], torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(lib, status, "mel_spectrogram")
     mel_spectrogram_fused.launches += 1
     return out

@@ -9,7 +9,8 @@ eight residual stacks of ``models/decoder_vjp.py`` (``Residuals``).
 ``_bwd_scan_call`` and ``backward_chain``) in the rematerialising form: the
 reverse-time data-gradient chain, with d_processed, d_K2 and d_v
 accumulated in fp32 in the kernel. At bf16 its products run on the tensor
-cores; at fp32 on the CUDA cores (the tensor cores take no plain fp32).
+cores; at fp32, and at bf16 shapes the tensor-core chain does not take
+(``csrc/train_scan.cu`` ``tc_shapes_ok``), on the CUDA cores.
 
 The math is the TPU kernels', not their layout. The TPU kernels evaluate
 the location conv as a windowed banded-Toeplitz product for the matrix
@@ -44,8 +45,7 @@ from tacotron2_tpu_torch.kernels.lstm_layout import (from_blocks,
                                                      to_col_tiles)
 
 _UNITS = 8          # hidden units per scan_lstm_kernel block (TS_UNITS)
-_AB_THREADS = 512   # attn_bwd_kernel threads (fp32): datt must divide it
-_TC_KC = 32         # depth chunk of the tensor-core product (TC_KC)
+_AB_THREADS = 512   # attn_bwd_kernel threads: datt must divide it
 
 Keep = Tuple[torch.Tensor, torch.Tensor]
 
@@ -301,7 +301,7 @@ def _check_weights(sw: ScanWeights, mem: torch.Tensor) -> None:
     if A % _UNITS or D % _UNITS or ks % 2 == 0:
         raise ValueError(f"scan kernels need LSTM widths that are multiples "
                          f"of {_UNITS} and an odd location kernel size")
-    if W == torch.float32 and (datt > _AB_THREADS or _AB_THREADS % datt):
+    if datt > _AB_THREADS or _AB_THREADS % datt:
         raise ValueError(f"scan backward kernel needs an attention width "
                          f"dividing {_AB_THREADS}, got {datt}")
     f32, c = torch.float32, 4 * _UNITS
@@ -392,14 +392,6 @@ def backward_chain(sw: ScanWeights, res: Residuals, mem: torch.Tensor,
     W, dev = sw.wq.dtype, mem.device
     T, B, _ = res.ga.shape
     A, D, P, E, datt, ks = _dims(sw, mem)
-    if W == torch.bfloat16 and (A % _TC_KC or D % _TC_KC or datt % 64
-                                or datt > 128 or ks > 32 or E % 8):
-        raise ValueError(f"the bf16 scan backward needs LSTM widths that are "
-                         f"multiples of {_TC_KC}, an attention width of 64 "
-                         f"or 128, at most 31 location taps and an encoder "
-                         f"width that is a multiple of 8; got A={A}, D={D}, "
-                         f"datt={datt}, "
-                         f"ks={ks}, E={E}")
     Ti = mem.shape[1]
     f32 = torch.float32
     shapes = Residuals((T, B, 4 * A), (T, B, 4 * D), (T, B, A), (T, B, D),

@@ -172,33 +172,40 @@ def _rna_tf32(x):
 def _emulated_log_mel(y, cfg, passes):
     """The mel kernel's arithmetic in numpy: each frame folded about its
     centre in fp32 (u[k] = x[k] + x[n - k], v[k] = x[k] - x[n - k] for
-    0 < k < n / 2; x[k] itself at 0 and n / 2), split into TF32 hi and lo as
-    the kernel splits it when it stages it, against the folded bases as the
-    wrapper packs them (``packed_bases``), products of TF32 values (exact in
-    fp32) summed in fp32. passes 3: lo hi + hi lo + hi hi (3xTF32); 1:
-    plain TF32."""
+    0 < 2k < n; x[k] itself and 0 where row k has no partner), split into
+    TF32 hi and lo as the kernel splits it when it stages it, against the
+    folded bases as the wrapper packs them (``packed_bases``: part 0 takes u
+    into cos and v into sin, part 1 the other way round), products of TF32
+    values (exact in fp32) summed in fp32. passes 3: lo hi + hi lo + hi hi
+    (3xTF32); 1: plain TF32."""
     x = stft.frame_signal(torch.from_numpy(y), cfg.stft).numpy()
     n_fft, n_bins = cfg.filter_length, cfg.stft.n_bins
     half = n_fft // 2
+    paired = np.arange(1, half + 1)
+    paired = paired[2 * paired < n_fft]
     mirror = np.zeros_like(x[..., :half + 1])
-    mirror[..., 1:half] = x[..., :half:-1]          # x[n - k], 0 < k < n/2
+    mirror[..., paired] = x[..., n_fft - paired]
     u = (x[..., :half + 1] + mirror).astype(np.float32)
     v = (x[..., :half + 1] - mirror).astype(np.float32)
     packs = []
-    for part in mel_kernel.packed_bases(cfg, "cpu"):
-        nt, kpad, _ = part.shape
-        p = part.numpy().reshape(nt, kpad, 2, 64).transpose(1, 2, 0, 3)
-        packs.append(p.reshape(kpad, 2, nt * 64)[:half + 1, :, :n_bins])
+    for pack in mel_kernel.packed_bases(cfg, "cpu"):
+        nt, parts, kpad, _ = pack.shape
+        p = pack.numpy().reshape(nt, parts, kpad, 2, 64).transpose(1, 2, 3,
+                                                                   0, 4)
+        packs.append(p.reshape(parts, kpad, 2, nt * 64)[:, :half + 1, :,
+                                                        :n_bins])
     b_hi, b_lo = packs
 
-    def product(a, col):
+    def product(a, part, col):
         a_hi = _rna_tf32(a)
         a_lo = _rna_tf32(a - a_hi)
+        hi, lo = b_hi[part, :, col], b_lo[part, :, col]
         if passes == 1:
-            return a_hi @ b_hi[:, col]
-        return (a_lo @ b_hi[:, col] + a_hi @ b_lo[:, col]
-                + a_hi @ b_hi[:, col]).astype(np.float32)
-    re, im = product(u, 0), product(v, 1)
+            return a_hi @ hi
+        return (a_lo @ hi + a_hi @ lo + a_hi @ hi).astype(np.float32)
+    re, im = product(u, 0, 0), product(v, 0, 1)
+    if b_hi.shape[0] == 2:
+        re, im = re + product(v, 1, 0), im + product(u, 1, 1)
     mag = np.sqrt(re * re + im * im)
     mels = mag @ mel.mel_weights(cfg, "cpu").numpy()
     return np.log(np.maximum(mels, 1e-5)).transpose(0, 2, 1)
@@ -210,8 +217,10 @@ MEL_KERNEL_LOG_ATOL = 1e-4   # the mel kernel's limit on the card
 @pytest.mark.parametrize("cfg", [
     mel.MelConfig(),
     mel.MelConfig(filter_length=200, hop_length=50, win_length=160,
-                  n_mel_channels=20, sampling_rate=8000, mel_fmax=4000.0)],
-    ids=["n_fft1024", "n_fft200"])
+                  n_mel_channels=20, sampling_rate=8000, mel_fmax=4000.0),
+    mel.MelConfig(**dict(SMALL, win_length=201)),
+    mel.MelConfig(**dict(SMALL, filter_length=255, win_length=255))],
+    ids=["n_fft1024", "n_fft200", "off-centre-window", "odd-n_fft"])
 def test_mel_kernel_split_tf32_emulation_is_within_tolerance(cfg):
     """3xTF32 on folded frames, as the mel kernel computes its DFT on the
     tensor cores, emulated in numpy on a loud row and a quiet row (most mels
@@ -232,11 +241,25 @@ def test_mel_kernel_split_tf32_emulation_is_within_tolerance(cfg):
 
 
 def test_mel_kernel_bases_need_a_centred_window():
-    """The kernel folds each frame about its centre, which needs the
-    windowed bases even and odd there: a window padded off centre (n_fft -
-    win_length odd) is refused when the bases are packed."""
+    """The kernel folds each frame about its centre, where a centred window
+    makes the windowed cos bases even and the sin bases odd: one part of
+    folded bases. A window padded off centre (n_fft - win_length odd) needs
+    the other halves too, a second part; the two parts hold the whole bases
+    (rows k and n - k are their even part plus and minus their odd part)."""
     hi, lo = mel_kernel.packed_bases(mel.MelConfig(), "cpu")
-    assert hi.shape == lo.shape == (9, 544, 128)
-    with pytest.raises(ValueError, match="symmetric"):
-        mel_kernel.packed_bases(mel.MelConfig(filter_length=256,
-                                              win_length=201), "cpu")
+    assert hi.shape == lo.shape == (9, 1, 544, 128)
+    cfg = mel.MelConfig(filter_length=256, win_length=201)
+    hi, lo = mel_kernel.packed_bases(cfg, "cpu")
+    assert hi.shape == lo.shape == (3, 2, 160, 128)
+    p = (hi.double() + lo.double()).reshape(3, 2, 160, 2, 64)
+    p = p.permute(1, 2, 3, 0, 4).reshape(2, 160, 2, 192)[..., :129]
+    (ce, so), (co, se) = p[0, :129].unbind(1), p[1, :129].unbind(1)
+    cos_b, sin_b = (b.double() for b in stft.dft_basis(cfg.stft, "cpu"))
+    k = torch.arange(1, 128)
+    for b, even, odd in ((cos_b, ce, co), (sin_b, se, so)):
+        torch.testing.assert_close(even[k] + odd[k], b[k], rtol=0, atol=1e-6)
+        torch.testing.assert_close(even[k] - odd[k], b[256 - k], rtol=0,
+                                   atol=1e-6)
+        torch.testing.assert_close(even[[0, 128]], b[[0, 128]], rtol=0,
+                                   atol=1e-6)
+        assert float(odd[[0, 128]].abs().max()) == 0.0

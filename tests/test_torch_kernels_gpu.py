@@ -314,6 +314,31 @@ def test_scan_backward_tensor_core_shapes_match_plain(cuda, B, T_in, cfg):
     assert max(errs.values()) <= SCAN_REL[torch.bfloat16], errs
 
 
+# Shapes outside the tensor-core chain's range (an attention width of 256,
+# LSTM widths that are no multiple of 32, an encoder width that is no
+# multiple of 8, 33 location taps): at bf16 they take the CUDA-core chain,
+# the one the fp32 step runs, instantiated at bf16.
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [
+    CFG.replace(attention_dim=256),
+    CFG.replace(attention_rnn_dim=40, decoder_rnn_dim=40),
+    CFG.replace(encoder_embedding_dim=132),
+    CFG.replace(attention_location_kernel_size=33)],
+    ids=["datt256", "lstm40", "E132", "ks33"])
+def test_scan_backward_cuda_core_shapes_match_plain(cuda, cfg):
+    """Row 2 at bf16 with dropout outside the tensor-core range (B=13,
+    T_in=45), every output within SCAN_REL."""
+    sw, res, mem, proc, cots, kw = _bwd_case(cuda, torch.bfloat16, 13, 45,
+                                             True, cfg=cfg)
+    launches = ts.backward_chain.launches
+    got = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
+    assert ts.backward_chain.launches == launches + 1
+    want = ts.backward_chain_plain(sw, res, mem, proc, *cots, **kw)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, ts.ChainGrads._fields)
+    assert max(errs.values()) <= SCAN_REL[torch.bfloat16], errs
+
+
 @pytest.mark.gpu
 def test_scan_backward_accumulators_are_deterministic(cuda):
     """Two runs of the backward kernel at B=128 give the same bits of d_K2,
@@ -477,13 +502,21 @@ def test_int8_kernel_rejects_mixed_devices(cuda):
 
 # whole tiles of 64 frames, a ragged last tile, fewer frames than a tile,
 # a narrow config whose depth is no multiple of the staged chunk (and whose
-# 101 bins leave a ragged bin tile, as 513 do), and the front end's batch of
-# 16 x 6 s (1.5 tiles of frames straddle each pair of waveforms)
+# 101 bins leave a ragged bin tile, as 513 do), the front end's batch of
+# 16 x 6 s (1.5 tiles of frames straddle each pair of waveforms), a window
+# off the frame's centre (n_fft - win_length odd: the second pass of folded
+# bases) and an odd n_fft (no unpaired middle row)
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,cfg", [
     (2, 127 * 256, MelConfig()), (3, 10000, MelConfig()),
     (1, 700, MelConfig()), (16, 6 * 22050, MelConfig()),
     (2, 3000, MelConfig(filter_length=200, hop_length=50, win_length=160,
+                        n_mel_channels=20, sampling_rate=8000,
+                        mel_fmax=4000.0)),
+    (2, 3000, MelConfig(filter_length=256, hop_length=64, win_length=201,
+                        n_mel_channels=20, sampling_rate=8000,
+                        mel_fmax=4000.0)),
+    (2, 3000, MelConfig(filter_length=255, hop_length=64, win_length=255,
                         n_mel_channels=20, sampling_rate=8000,
                         mel_fmax=4000.0))])
 def test_mel_kernel_matches_plain(cuda, B, S, cfg):
