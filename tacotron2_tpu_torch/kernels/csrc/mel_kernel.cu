@@ -94,11 +94,14 @@ __device__ __forceinline__ void mel_load_basis(MelSmem& s, const float* bhi,
   }
 }
 
+// PARTS: the parts of the packed bases (a template parameter, so that the
+// one-part kernel, the common case, carries no code for the second)
+template <int PARTS>
 __global__ void __launch_bounds__(MEL_THREADS)
 mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
            const float* __restrict__ blo, const float* __restrict__ melT,
            float* __restrict__ out, int B, int S, int T, int n_fft, int hop,
-           int n_bins, int n_mels, int parts) {
+           int n_bins, int n_mels) {
   extern __shared__ __align__(16) unsigned char sm_raw[];
   MelSmem& s = *reinterpret_cast<MelSmem*>(sm_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -108,7 +111,7 @@ mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
   const int half = n_fft / 2;
   const int nk = (half + 1 + MEL_KC - 1) / MEL_KC;   // folded depth
   const int ntiles = (n_bins + MEL_NB - 1) / MEL_NB;
-  const int nkp = nk * parts;                        // chunks of a bin tile
+  const int nkp = nk * PARTS;                        // chunks of a bin tile
   const int nq = nkp * ntiles;
 
   // the frame and the 8 folded depths this thread stages in each chunk
@@ -150,7 +153,7 @@ mel_kernel(const float* __restrict__ y, const float* __restrict__ bhi,
   fetch(0);
   for (int q = 0; q < nq; ++q) {
     const int qt = q % nkp, bin0 = (q / nkp) * MEL_NB;
-    const bool swap = qt >= nk;   // part 1: cos takes v, sin takes u
+    const bool swap = PARTS == 2 && qt >= nk;   // part 1: cos v, sin u
     if (qt == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -310,14 +313,14 @@ int mel_spectrogram(const void* y, const void* bhi, const void* blo,
   if (S <= n_fft / 2 || parts < 1 || parts > 2 ||
       mel_limits(n_mels, &need, &have) != 0)
     return (int)cudaErrorInvalidValue;
+  auto kernel = parts == 2 ? &mel_kernel<2> : &mel_kernel<1>;
   cudaError_t err = cudaFuncSetAttribute(
-      mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
   if (err != cudaSuccess) return err;
   const int grid = (B * T + MEL_TF - 1) / MEL_TF;
-  mel_kernel<<<grid, MEL_THREADS, need, (cudaStream_t)stream>>>(
+  kernel<<<grid, MEL_THREADS, need, (cudaStream_t)stream>>>(
       (const float*)y, (const float*)bhi, (const float*)blo,
-      (const float*)melT, (float*)out, B, S, T, n_fft, hop, n_bins, n_mels,
-      parts);
+      (const float*)melT, (float*)out, B, S, T, n_fft, hop, n_bins, n_mels);
   return (int)cudaGetLastError();
 }
 
