@@ -12,11 +12,12 @@ on failure:
 2. build every CUDA kernel source of ``tacotron2_tpu_torch/kernels/csrc``;
 3. encoder BiLSTM kernel against its plain version at full width (B=8,
    T=128, N=512, H=256, bf16), timed beside cuDNN's bidirectional LSTM;
-4. decoder chunk kernel against its plain version at full width (B=8,
-   T_in=128, one 64-step chunk, bf16; again with prenet keep masks; once at
-   fp32), every output and carry field within its own limit (DEC_REL), and
-   the same comparison must reject the kernel's output with its attention
-   perturbed;
+4. decoder chunk kernel against its plain version at full width (T_in=128,
+   one 64-step chunk: B=8 bf16, again with prenet keep masks, once at fp32;
+   B=1 bf16; B=13 bf16 with keep masks), every output and carry field
+   within its own limit (DEC_REL), and the same comparison must reject the
+   kernel's output with its attention perturbed; a bf16 chunk must be one
+   launch of the persistent kernel (torch.profiler);
 5. serving: ``BatchingSynthesizer(max_batch=8)`` at the default config with
    seeded random weights answers 16 requests in the 64 and 128 text
    buckets (bf16, max_steps=200); both kernels' launch counts must rise
@@ -35,7 +36,8 @@ on failure:
    full V1 HiFi-GAN generator and with Griffin-Lim (max_steps=200), the same
    text on ``quantize_for_serving`` weights through the step-by-step decoder,
    ``StreamingSynthesizer(chunk_steps=32).stream(text)`` held against the
-   offline result, and the front end on 16 waveforms of 6 s; each path's
+   offline result, ``stream_batch`` on four texts against the offline
+   batch, and the front end on 16 waveforms of 6 s; each path's
    launch counts must show its kernel and no plain version may run on the
    card; a breakdown by stage, a profile, and an fp32 ``infer_fused`` on the
    card against the CPU plain path;
@@ -272,18 +274,33 @@ def _chunk_inputs(model, cfg, dev, dtype, B, T):
     return mem, proc, emask, carry, g
 
 
+# csrc/decoder_batch.cu's kernels: the persistent chunk and the per-step
+# kernels of its first design (the fp32 chunk's)
+CHUNK_KERNELS = ("persistent_chunk_kernel", "prenet_kernel", "lstm_kernel",
+                 "query_kernel", "energy_kernel", "softmax_ctx_kernel",
+                 "proj_kernel")
+
+
 def decoder_phase(model, cfg, dev, card):
-    B, T, cs = 8, 128, 64
+    """Row 5 at full width against its plain version: B=8 (bf16, bf16 with
+    keep masks, fp32), B=1 and B=13 with keep masks, one 64-step chunk each;
+    the kernel line's time at B=8 bf16, beside the per-step byte floor;
+    the chunk's CUDA kernels counted by torch.profiler."""
+    T, cs = 128, 64
     results = {}
-    for dtype, label in ((torch.bfloat16, "bf16"),
-                         (torch.bfloat16, "bf16+keep"),
-                         (torch.float32, "fp32")):
+    for dtype, B, keep in ((torch.bfloat16, 8, False),
+                           (torch.bfloat16, 8, True),
+                           (torch.float32, 8, False),
+                           (torch.bfloat16, 1, False),
+                           (torch.bfloat16, 13, True)):
+        label = (f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+                 f"{'+keep' if keep else ''} B={B}")
         limits = DEC_REL[dtype]
         fp = db.pack_batch_decoder_params(model, dtype)
         mem, proc, emask, carry, g = _chunk_inputs(model, cfg, dev,
                                                    dtype, B, T)
         kp = (None, None)
-        if label == "bf16+keep":
+        if keep:
             kp = tuple((torch.rand(cs, B, cfg.prenet_dim, generator=g,
                                    device=dev) < 0.5).float()
                        for _ in range(2))
@@ -309,8 +326,19 @@ def decoder_phase(model, cfg, dev, card):
                                getattr(want.carry, name)):
                 fail(f"decoder kernel ({label}): {name} differs from the "
                      f"plain version")
-        if label == "bf16":
+        if label == "bf16 B=8":
             _check_catches(got, want, limits)
+            names = profiled_kernels(lambda: db.decoder_chunk(*args, **kw))
+            chunk = [k for k in names if k in CHUNK_KERNELS]
+            setup = [k for k in names if k not in CHUNK_KERNELS]
+            if chunk != ["persistent_chunk_kernel"]:
+                fail(f"a bf16 chunk launched {chunk}, not one persistent "
+                     f"kernel")
+            per_chunk = {"kernels": len(chunk), "set_up": len(setup)}
+            print(f"decoder [{card}] bf16 B={B} one {cs}-step chunk under "
+                  f"torch.profiler: {len(chunk)} launch of {chunk[0]} (the "
+                  f"first design launched 7 x {cs} = {7 * cs}); set-up: "
+                  f"{len(setup)} ({', '.join(sorted(set(setup)))})")
         ms = cuda_ms(lambda: db.decoder_chunk(*args, **kw), iters=5)
         plain_ms = cuda_ms(lambda: db.decoder_chunk_plain(*args, **kw),
                            iters=2, warmup=1)
@@ -318,25 +346,39 @@ def decoder_phase(model, cfg, dev, card):
                                       cfg.attention_location_n_filters)
         bound_ms, bound_by = bound(nbytes, flops, "float32"
                                    if dtype == torch.float32 else "bfloat16")
-        print(f"decoder [{card}] {label} B={B} T_in={T} chunk={cs}: max |err|"
+        # what each step must touch whatever the kernel keeps: both LSTMs'
+        # weights, memory and processed memory, read once a step
+        step_b = (fp.w1.numel() * fp.w1.element_size()
+                  + fp.w2.numel() * fp.w2.element_size()
+                  + mem.numel() * mem.element_size()
+                  + proc.numel() * proc.element_size())
+        floor_ms = cs * step_b / HBM_BYTES_PER_S * 1e3
+        print(f"decoder [{card}] {label} T_in={T} chunk={cs}: max |err|"
               f" {err:.3e}; finished "
-              f"{int(got.carry.fin.sum())}/{B}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+              f"{int(got.carry.fin.sum())}/{B}; kernel {ms:.4f} ms "
+              f"({ms / cs * 1e3:.2f} us a step), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}); per-step floor "
+              f"{step_b / 1e6:.1f} MB, {floor_ms:.4f} ms at the HBM rate")
         results[label] = dict(max_abs_err=err, ms=ms,
                               plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
-    r = results["bf16"]
+                              bound_by=bound_by, floor_ms=floor_ms)
+    r = results["bf16 B=8"]
     return {"name": "decoder_chunk", "route": "cuda",
             "source": "tacotron2_tpu_torch/kernels/csrc/decoder_batch.cu",
             "replaces": "tacotron2_tpu/kernels/decoder_batch.py:107",
-            "max_abs_err": max(results["bf16"]["max_abs_err"],
-                               results["bf16+keep"]["max_abs_err"]),
+            "max_abs_err": max(results[k]["max_abs_err"] for k in results
+                               if not k.startswith("fp32")),
             "tolerance": {"share_of_field_max": DEC_REL[torch.bfloat16]},
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
-            "fp32": {k: results["fp32"][k] for k in
-                     ("max_abs_err", "ms", "plain_ms", "bound_ms")}}
+            "floor_ms": r["floor_ms"], "library_ms": None,
+            "launches_per_chunk": per_chunk,
+            "fp32": {k: results["fp32 B=8"][k] for k in
+                     ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+            "B1": {k: results["bf16 B=1"][k] for k in
+                   ("max_abs_err", "ms", "bound_ms", "floor_ms")},
+            "B13_keep": {k: results["bf16+keep B=13"][k] for k in
+                         ("max_abs_err", "ms", "bound_ms", "floor_ms")}}
 
 
 def _chunk_fields(got, want):
@@ -374,7 +416,9 @@ def _decoder_work(fp, B, T, cs, keep, n_filters, att_size=None):
     ks, _, datt = fp.k2.shape
     e = k2 - a - d
     size = lambda x: x.numel() * x.element_size()
-    nbytes = sum(size(x) for x in fp)
+    # each weight once: not the fragment-order copies of the LSTMs
+    nbytes = sum(size(x) for x in fp._replace(w1f=None, w2f=None)
+                 if x is not None)
     wsz = att_size or fp.w1.element_size()
     nbytes += B * T * (e + datt) * wsz + B * T * 4          # mem, proc, mask
     nbytes += 2 * 4 * B * (2 * a + 2 * d + e + n + 2 * T + 2)  # carry in+out
@@ -488,6 +532,21 @@ def breakdown_phase(model, cfg, dev, card):
     torch.cuda.synchronize()
     print(f"profile [{card}] bf16 B=8 T_in=128 64 steps: "
           + profile_kernels(run, top=10))
+
+
+def profiled_kernels(run):
+    """The names of the CUDA kernels (and memsets, copies) one run()
+    launches, in launch order, by torch.profiler."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        fail("the profiler saw no device activity")
+    return [e.name.split("(")[0].split("<")[0].replace("void ", "")
+            for e in events]
 
 
 def profile_kernels(run, top: int) -> str:
@@ -818,7 +877,8 @@ def mel_phase(cfg, dev, card):
 UTTERANCE_KERNELS = {"encoder_lstm_fwd": el.bilstm_forward,
                      "decoder_step_chunk": ds.decoder_step_chunk,
                      "int8_matmul": i8.int8_matmul,
-                     "mel_spectrogram_fused": mk.mel_spectrogram_fused}
+                     "mel_spectrogram_fused": mk.mel_spectrogram_fused,
+                     "decoder_chunk": db.decoder_chunk}
 UTTERANCE_PLAIN = (el.bilstm_forward_plain, db.decoder_chunk_plain,
                    ds.decoder_step_chunk_plain, i8.int8_matmul_plain,
                    mk.mel_spectrogram_fused_plain)
@@ -974,6 +1034,9 @@ def utterance_phase(cfg, dev, card, seed):
           + ", ".join(f"{k} {r:.2e}" for k, (_, r) in gaps.items())
           + f"; launches {c}")
 
+    counts["stream_batch"] = stream_batch_check(model, voc, hg, streamer,
+                                                cfg, dev, card, steps)
+
     mc = tmel.MelConfig.from_config(cfg)
     y = _waveforms(dev, 16, 6 * cfg.sampling_rate, 52)
     (mels, fe_ms), c = _counted(
@@ -994,6 +1057,67 @@ def utterance_phase(cfg, dev, card, seed):
           f"max |diff| {gap:.3e} in the log domain; launches {c}")
     utterance_breakdown(model, voc, hg, cfg, dev, card, text, lengths)
     return counts
+
+
+def stream_batch_check(model, voc, hg, streamer, cfg, dev, card, steps):
+    """``StreamingSynthesizer.stream_batch`` on four texts (bucket 128),
+    row 5's other caller, against the offline batch (``infer_batch_fused``
+    and HiFi-GAN on the same bucket-padded texts) within the streaming
+    tolerance; returns the launch counts of the streamed run."""
+    texts = LONG_TEXTS[:4]
+    ids = [text_to_sequence(t, cfg.text_cleaners) for t in texts]
+    bucket = max(text_bucket(len(i), cfg.text_buckets) for i in ids)
+    text = torch.zeros(len(ids), bucket, dtype=torch.long)
+    for i, x in enumerate(ids):
+        text[i, :len(x)] = torch.tensor(x)
+    lengths = torch.tensor([len(x) for x in ids], dtype=torch.int32)
+    off = tm.infer_batch_fused(model, text, lengths, cfg, max_steps=steps,
+                               device=dev)
+    off_audio = hifigan.generator(voc, off.mel_postnet, hg)
+    list(streamer.stream_batch(texts))                # warm-up
+
+    def stream():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = None
+        mels = [[] for _ in texts]
+        audio = [[] for _ in texts]
+        for row, ev in streamer.stream_batch(texts):
+            if ev.mel is not None:
+                mels[row].append(torch.from_numpy(ev.mel))
+            if ev.audio is not None:
+                if first is None:
+                    first = (time.perf_counter() - t0) * 1e3
+                audio[row].append(torch.from_numpy(ev.audio))
+        total = (time.perf_counter() - t0) * 1e3
+        return ([torch.cat(m) for m in mels], [torch.cat(a) for a in audio],
+                first, total)
+
+    (mels, audio, first_ms, total_ms), c = _counted(
+        "stream_batch", stream, ("encoder_lstm_fwd", "decoder_chunk"))
+    worst = {"mel": 0.0, "audio": 0.0}
+    for row in range(len(texts)):
+        n = int(off.mel_lengths[row])
+        want = {"mel": off.mel_postnet[row, :n].cpu(),
+                "audio": off_audio[row, :n * hg.hop_length].cpu()}
+        for name, got in (("mel", mels[row]), ("audio", audio[row])):
+            if got.shape != want[name].shape:
+                fail(f"stream_batch row {row}: {name} {tuple(got.shape)}, "
+                     f"offline {tuple(want[name].shape)}")
+            err, rel = field_err(got, want[name])
+            if rel > STREAM_REL_BF16:
+                fail(f"stream_batch row {row}: {name} departs from the "
+                     f"offline batch by {err}, {rel:.3e} of its largest "
+                     f"value, beyond {STREAM_REL_BF16}")
+            worst[name] = max(worst[name], rel)
+    print(f"stream_batch [{card}] bf16 B={len(texts)} bucket {bucket} "
+          f"chunk_steps={streamer.chunk_steps} max_steps={steps} with "
+          f"HiFi-GAN V1: first audio after {first_ms:.1f} ms, all after "
+          f"{total_ms:.1f} ms; against the offline batch, worst max |diff| "
+          f"as a share of the largest value (limit {STREAM_REL_BF16}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f"; launches {c}")
+    return c
 
 
 def utterance_breakdown(model, voc, hg, cfg, dev, card, text, lengths):
@@ -1232,14 +1356,21 @@ def scan_phase(model, cfg, dev, card):
         step_b = (2 * (4 * A * sw.w1.shape[1] + 4 * D * sw.w2.shape[1])
                   + B * T_in * (2 * E + 2 * datt + 8 * datt))
         floor_ms = steps * step_b / HBM_BYTES_PER_S * 1e3
+        # the forward's: both LSTMs' weights, mem and proc read, the step's
+        # residual stacks written
+        fwd_step_b = (2 * (4 * A * sw.w1.shape[1] + 4 * D * sw.w2.shape[1])
+                      + B * T_in * (E + datt) * 2
+                      + B * ((5 * A + 5 * D) * 2 + (A + D + E + T_in) * 4))
+        floors = {"train_scan_fwd": (fwd_step_b, steps * fwd_step_b
+                                     / HBM_BYTES_PER_S * 1e3),
+                  "train_scan_bwd": (step_b, floor_ms)}
         for name, line, errs, ms, plain, (nb, nf) in (
                 ("train_scan_fwd", 354, ferr, fwd_ms, fwd_plain, (fb, ff)),
                 ("train_scan_bwd", 619, berr, bwd_ms, bwd_plain, (bb, bf))):
             bound_ms, bound_by = bound(nb, nf, "bfloat16")
-            extra = ""
-            if name == "train_scan_bwd":
-                extra = (f"; per-step floor {step_b / 1e6:.1f} MB touched a "
-                         f"step, {floor_ms:.4f} ms at the HBM rate")
+            sb, fl = floors[name]
+            extra = (f"; per-step floor {sb / 1e6:.1f} MB touched a step, "
+                     f"{fl:.4f} ms at the HBM rate")
             print(f"train scan [{card}] {name} B={B} T_in={T_in} {steps} "
                   f"steps bf16 with dropout: kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
@@ -1253,7 +1384,8 @@ def scan_phase(model, cfg, dev, card):
                               if name.endswith("fwd") else SCAN_BWD_REL},
                 "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
-        out["train_scan_bwd"]["floor_ms"] = floor_ms
+        for name, (_, fl) in floors.items():
+            out[name]["floor_ms"] = fl
         del got, want, gk, gp, args
     return out["train_scan_fwd"], out["train_scan_bwd"]
 
@@ -1682,6 +1814,7 @@ def main() -> int:
     enc["launches"] = counts["encoder_lstm_fwd"]
     enc["launches_training"] = train_counts["encoder_lstm_fwd"]
     dec["launches"] = counts["decoder_chunk"]
+    dec["launches_stream_batch"] = utt["stream_batch"]["decoder_chunk"]
     for k in (scan_fwd, scan_bwd, enc_bwd):
         k["launches"] = train_counts[k["name"]]
     step["launches"] = sum(utt[k]["decoder_step_chunk"] for k in (

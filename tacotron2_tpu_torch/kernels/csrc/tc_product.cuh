@@ -9,8 +9,9 @@
 // order of the sums differs from a row-by-row loop.
 //
 // Used by the training scan's backward chain (dgates @ [wi ; wh]^T for both
-// LSTMs, and the query of every step); the forward scan's gate products
-// have the same shape.
+// LSTMs, and the query of every step) and its forward (the query of each
+// step; the forward's gate products run the same ring and warp tiles in
+// train_scan.cu's scan_cell_kernel, with the LSTM cell in the epilogue).
 //
 // Layout: X row-major (M, K) with row stride ldx; W column-tiled as
 // kernels/lstm_layout.py to_col_tiles makes it, (ceil(N / 32), K, 32) with
@@ -51,6 +52,22 @@ struct TcSmem {
   __nv_bfloat16 w[TC_STAGES][TC_KC * TC_WLD];
 };
 
+// The weight rows k0 .. k0 + TC_KC of the block's TC_NT columns (two
+// 32-column tiles from tile0) into ring slot `slot`.
+__device__ __forceinline__ void tc_load_w(
+    TcSmem& s, int slot, const __nv_bfloat16* __restrict__ w, int K,
+    int ntiles32, int tile0, int k0) {
+  constexpr int PR = TC_NT / 8;   // 16-byte pieces a row
+  for (int i = threadIdx.x; i < TC_KC * PR; i += TC_THREADS) {
+    const int kr = i / PR, p = i % PR;
+    const int tile = tile0 + (p >> 2);
+    const bool in = tile < ntiles32;
+    const __nv_bfloat16* src =
+        in ? w + ((size_t)tile * K + k0 + kr) * 32 + (p & 3) * 8 : w;
+    cp_async16(&s.w[slot][kr * TC_WLD + p * 8], src, in ? 16 : 0);
+  }
+}
+
 // Chunk c (rows k0 .. k0 + TC_KC of the depth) into ring slot `slot`.
 __device__ __forceinline__ void tc_load_chunk(
     TcSmem& s, int slot, const __nv_bfloat16* __restrict__ x, int ldx, int M,
@@ -63,16 +80,7 @@ __device__ __forceinline__ void tc_load_chunk(
     const __nv_bfloat16* src = in ? x + (size_t)(m0 + r) * ldx + k0 + p * 8 : x;
     cp_async16(&s.x[slot][r * TC_XLD + p * 8], src, in ? 16 : 0);
   }
-  // W: TC_KC rows x TC_NT columns, from two 32-column tiles
-  constexpr int PR = TC_NT / 8;   // 16-byte pieces a row
-  for (int i = threadIdx.x; i < TC_KC * PR; i += TC_THREADS) {
-    const int kr = i / PR, p = i % PR;
-    const int tile = tile0 + (p >> 2);
-    const bool in = tile < ntiles32;
-    const __nv_bfloat16* src =
-        in ? w + ((size_t)tile * K + k0 + kr) * 32 + (p & 3) * 8 : w;
-    cp_async16(&s.w[slot][kr * TC_WLD + p * 8], src, in ? 16 : 0);
-  }
+  tc_load_w(s, slot, w, K, ntiles32, tile0, k0);
 }
 
 // One chunk of the block's product from ring slot `slot` into the warp's

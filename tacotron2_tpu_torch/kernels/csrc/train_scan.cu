@@ -44,11 +44,19 @@
 // step must touch whatever it keeps: both LSTMs' weights (36 MB in bf16),
 // mem and proc read and d_processed read and written (~38 MB at T_in 128).
 //
-// Forward design (unchanged since it was written): a few plain launches
-// per step from a host loop inside the C entry point: scan_lstm_kernel
-// (blocks own TS_UNITS hidden units and all four gate columns x 8 rows,
-// weights block-major, products on CUDA cores in fp32), the query, the
-// serving chunk's energy and softmax/context kernels, scan_lstm_kernel.
+// Forward design: five launches per step from a host loop inside the C
+// entry point. At bf16 (the training path, shapes in fwd_tc_ok) the two
+// LSTM products run on the tensor cores with the cell in their epilogue
+// (scan_cell_kernel: one bf16 mma.sync product over all rows, a block owning
+// all of them, so each weight element is read once a step), the query is
+// one tc_product, and the energies are rebuilt as an im2col bf16 mma
+// product (fwd_energy_kernel, the backward's attn_tiles_kernel arithmetic);
+// the softmax and context stay the serving chunk's kernel (see the
+// "forward, bf16" section). At fp32 (the step check) and at bf16 shapes
+// outside that range, the first design stays: scan_lstm_kernel (blocks own
+// TS_UNITS hidden units and all four gate columns x 8 rows, weights
+// block-major, products on CUDA cores in fp32), the query, the serving
+// chunk's energy and softmax/context kernels, scan_lstm_kernel.
 //
 // Backward design. At bf16 (the training path) the chain runs on the
 // tensor cores, six launches a step (see the "backward, bf16" section):
@@ -166,7 +174,7 @@ scan_query_kernel(const W* __restrict__ h, const W* __restrict__ wq,
 }
 
 struct Fwd {
-  const void *w1, *w2, *wq, *k2, *v;  // W
+  const void *w1, *w2, *wq, *wqc, *k2, *v;  // W; wqc wq column-tiled
   const float *b1, *b2;
   const void *prenet, *mem, *proc;    // W: (T, B, P), (B, Ti, E), (B, Ti, datt)
   const float* emask;                 // (B, Ti) additive
@@ -1246,6 +1254,458 @@ static cudaError_t run_bwd_tc(const Bwd& r, float* scratch, int sms,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- forward, bf16: tensor cores
+//
+// The forward of W = __nv_bfloat16 at the shapes fwd_tc_ok takes, per step
+// (five launches, as the first design):
+//   scan_cell_kernel    g1 = [prenet_t ; ctx_{t-1} ; h1_{t-1}] @ w1 as one
+//                       bf16 mma.sync product over all rows (tc_product's
+//                       ring, warp tiles and K slices), the attention-LSTM
+//                       cell in the epilogue -> ga, att_c, att_h
+//   tc_product          q = att_h[t] @ wq, fp32 sums (rounded to W where
+//                       the energies read it)
+//   fwd_energy_kernel   per (32 positions, FE_RB rows): the location term
+//                       as an im2col bf16 mma product of [w ; w_cum] windows
+//                       and K2, then e = W(tanh(q + loc + proc)) . v
+//   softmax_ctx_kernel  the serving chunk's (attention.cuh)
+//   scan_cell_kernel    g2 = [att_h[t] ; ctx_t ; h2_{t-1}] @ w2, the
+//                       decoder-LSTM cell in the epilogue -> gd, dec_c,
+//                       dec_h
+// The LSTM weights are the block-major slabs of 8 units (w1, w2 of
+// ScanWeights): as column tiles of 32 they are what tc_product reads, and
+// in a warp's 32-column tile of the m16n8 accumulators n8 tile j is gate j,
+// so each thread holds all four gates of its units 2 t4 and 2 t4 + 1 of
+// rows g and g + 8: the cell runs on registers. Where K is split into
+// slices, the tile's last block adds them in slice order (an integer
+// counter, no floating-point atomics) and then runs the cell.
+
+#define FE_RB 4   // rows per fwd_energy_kernel block
+
+// One LSTM's input rows [s0 ; s1 ; s2]: s0 and s2 in W, s1 fp32 rounded to
+// W on the way into shared memory; a null s1 or s2 reads as zeros (the t = 0
+// state). Widths are multiples of 8, so a 16-byte piece has one source.
+struct ScanSrc {
+  const bf16* s0;
+  const float* s1;
+  const bf16* s2;
+  int L0, L1, L2;
+};
+
+// Where the cell's results go: gates (M, 4H) W, c (M, H) fp32, the
+// dropped-out h (M, H) W.
+struct ScanCell {
+  const float* bias;          // (4H,) fp32
+  const float* c_prev;        // (M, H), or null at t = 0
+  const unsigned char* keep;  // (M, H) keep mask, or null
+  float scale;
+  bf16* g_out;
+  float* c_out;
+  bf16* h_out;
+  int H;
+};
+
+// The X rows m0 .. m0 + TC_MT of chunk k0 into ring slot `slot`.
+__device__ __forceinline__ void scan_load_x(TcSmem& s, int slot,
+                                            const ScanSrc& x, int M, int m0,
+                                            int k0) {
+  for (int i = threadIdx.x; i < TC_MT * 4; i += TC_THREADS) {
+    const int r = i >> 2, k = k0 + (i & 3) * 8, m = m0 + r;
+    bf16* dst = &s.x[slot][r * TC_XLD + (i & 3) * 8];
+    if (k >= x.L0 && k < x.L0 + x.L1) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (m < M && x.s1) {
+        const float4* src = reinterpret_cast<const float4*>(
+            x.s1 + (size_t)m * x.L1 + (k - x.L0));
+        const float4 a = src[0], b = src[1];
+        __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y),
+                               __floats2bfloat162_rn(a.z, a.w),
+                               __floats2bfloat162_rn(b.x, b.y),
+                               __floats2bfloat162_rn(b.z, b.w)};
+        v = *reinterpret_cast<const uint4*>(h);
+      }
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const bool first = k < x.L0;
+      const bf16* src = first ? x.s0 : x.s2;
+      const int ld = first ? x.L0 : x.L2;
+      const int kk = first ? k : k - x.L0 - x.L1;
+      const bool in = m < M && src != nullptr;
+      cp_async16(dst, in ? (const void*)(src + (size_t)m * ld + kk)
+                         : (const void*)x.s0, in ? 16 : 0);
+    }
+  }
+}
+
+// g = X @ w (w block-major at 8 units: column tiles of 32, N = 4H columns)
+// and the LSTM cell of every (row, unit) of the block's tile. grid
+// (ceil(N / TC_NT), ceil(M / TC_MT), nslice), TC_THREADS threads,
+// sizeof(TcSmem) bytes of dynamic shared memory; with nslice > 1, part
+// (nslice, M, N) and one zeroed counter per block tile (left zeroed).
+__global__ void __launch_bounds__(TC_THREADS)
+scan_cell_kernel(ScanSrc x, int M, int K, const bf16* __restrict__ w, int N,
+                 float* __restrict__ part, int* count, ScanCell c) {
+  extern __shared__ __align__(16) unsigned char tc_raw[];
+  TcSmem& s = *reinterpret_cast<TcSmem*>(tc_raw);
+  const int m0 = blockIdx.y * TC_MT, n0 = blockIdx.x * TC_NT;
+  const int ntiles32 = N / 32, tile0 = n0 / 32;
+  const int nch = K / TC_KC, z = blockIdx.z, nz = gridDim.z;
+  const int c0 = z * nch / nz, c1 = (z + 1) * nch / nz;
+  const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
+  const bool busy = m0 + wm * 32 < M && tile0 + wn < ntiles32;
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  const int n = c1 - c0;
+#pragma unroll
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
+    if (st < n) {
+      scan_load_x(s, st, x, M, m0, (c0 + st) * TC_KC);
+      tc_load_w(s, st, w, K, ntiles32, tile0, (c0 + st) * TC_KC);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+    const int next = i + TC_STAGES - 1;
+    if (next < n) {
+      scan_load_x(s, next % TC_STAGES, x, M, m0, (c0 + next) * TC_KC);
+      tc_load_w(s, next % TC_STAGES, w, K, ntiles32, tile0,
+                (c0 + next) * TC_KC);
+    }
+    cp_async_commit();
+    if (busy) tc_chunk_mma(s, i % TC_STAGES, acc);
+  }
+  cp_async_wait<0>();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  if (nz > 1) {
+    // every block stores its slice; the tile's last block adds them
+    float* dst = part + (size_t)z * M * N;
+    if (busy) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + wm * 32 + i * 16 + g + h * 8;
+            const int nn = n0 + wn * 32 + j * 8 + 2 * t4;
+            if (m < M)
+              __stcg(reinterpret_cast<float2*>(dst + (size_t)m * N + nn),
+                     make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]));
+          }
+    }
+    __shared__ int last;
+    __threadfence();
+    __syncthreads();
+    int* cnt = count + blockIdx.y * gridDim.x + blockIdx.x;
+    if (threadIdx.x == 0) last = atomicAdd(cnt, 1) == nz - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (threadIdx.x == 0) *cnt = 0;
+    if (!busy) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    for (int zz = 0; zz < nz; ++zz) {
+      const float* src = part + (size_t)zz * M * N;
+      float2 p[2][4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + wm * 32 + i * 16 + g + h * 8;
+            const int nn = n0 + wn * 32 + j * 8 + 2 * t4;
+            p[i][j][h] = m < M ? __ldcg(reinterpret_cast<const float2*>(
+                                     src + (size_t)m * N + nn))
+                               : make_float2(0.0f, 0.0f);
+          }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[i][j][2 * h] += p[i][j][h].x;
+            acc[i][j][2 * h + 1] += p[i][j][h].y;
+          }
+    }
+  }
+  if (!busy) return;
+  // the cell: acc[i][q][2 h + u] is gate q of unit 8 tile + 2 t4 + u, row
+  // m0 + 32 wm + 16 i + g + 8 h
+  const int H = c.H, tile = tile0 + wn;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + i * 16 + g + h * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int unit = tile * 8 + 2 * t4 + u;
+        float gq[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          gq[q] = acc[i][q][2 * h + u] + c.bias[q * H + unit];
+        const size_t idx = (size_t)m * H + unit;
+        const float cp = c.c_prev ? c.c_prev[idx] : 0.0f;
+        const float cn = sigmoid_f(gq[1]) * cp + sigmoid_f(gq[0]) * tanhf(gq[2]);
+        float hn = sigmoid_f(gq[3]) * tanhf(cn);
+        if (c.keep) hn = hn * (c.keep[idx] ? c.scale : 0.0f);
+        bf16* go = c.g_out + (size_t)m * 4 * H;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) go[q * H + unit] = from_f<bf16>(gq[q]);
+        c.c_out[idx] = cn;
+        c.h_out[idx] = from_f<bf16>(hn);
+      }
+    }
+}
+
+struct EnergyTc {
+  const float* q;            // (B, datt) fp32 sums of att_h[t] @ wq
+  const float *w, *wc;       // (B, Ti) w_{t-1}, w_cum_{t-1}
+  const bf16* k2;            // (ks, 2, datt)
+  const bf16* v;             // (datt,)
+  const bf16* proc;          // (B, Ti, datt)
+  float* e;                  // (B, Ti) out
+  int B, Ti, datt, ks;
+};
+
+struct EnergySmem {
+  bf16 k2[AB_KC * K2_LD];     // K2 as [2k + c][d], zero rows past 2 ks
+  bf16 win[AB_TT * WIN_LD];   // im2col windows [t][2k + c]
+  float qs[AB_DMAX], vf[AB_DMAX];
+  float red[4][AB_TT];
+};
+
+// Energies of AB_TT positions of FE_RB rows: loc = win (AB_TT x AB_KC) @ K2
+// (AB_KC x datt) on bf16 mma.sync (2 x 4 warps, 16 positions x datt / 4
+// columns each), then e[t] = sum_d W(tanh(q + loc + proc)) v[d], the four
+// column warps' sums added in order. The cast points of energy_kernel.
+// Needs datt % 64 == 0, datt <= AB_DMAX and 2 ks <= AB_KC.
+__global__ void __launch_bounds__(TILE_THREADS, 2)
+fwd_energy_kernel(EnergyTc a) {
+  extern __shared__ __align__(16) unsigned char fe_raw[];
+  EnergySmem& s = *reinterpret_cast<EnergySmem*>(fe_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, r8 = lane & 7, mi = lane >> 3;
+  const int t0 = blockIdx.x * AB_TT;
+  const int datt = a.datt, nkc = 2 * a.ks, pad = (a.ks - 1) / 2;
+  {  // K2 as [2k + c][d]: 8 bf16 a load, every load before any store
+    constexpr int NV = AB_KC * AB_DMAX / 8 / TILE_THREADS;
+    const int row8 = datt / 8;
+    uint4 v[NV];
+#pragma unroll
+    for (int it = 0; it < NV; ++it) {
+      const int i = tid + it * TILE_THREADS, kc = i / row8;
+      v[it] = kc < nkc ? reinterpret_cast<const uint4*>(a.k2)[i]
+                       : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int it = 0; it < NV; ++it) {
+      const int i = tid + it * TILE_THREADS, kc = i / row8;
+      if (kc < AB_KC)
+        *reinterpret_cast<uint4*>(&s.k2[kc * K2_LD + (i % row8) * 8]) = v[it];
+    }
+  }
+  for (int d = tid; d < datt; d += TILE_THREADS) s.vf[d] = to_f<bf16>(a.v[d]);
+  const int wm = warp >> 2, wn = warp & 3, nj = datt / 32;
+  const int c0 = wn * (datt / 4);
+  for (int r = 0; r < FE_RB; ++r) {
+    const int b = blockIdx.y * FE_RB + r;
+    if (b >= a.B) break;
+    const size_t rT = (size_t)b * a.Ti;
+    __syncthreads();
+    for (int d = tid; d < datt; d += TILE_THREADS)
+      s.qs[d] = rnd<bf16>(a.q[(size_t)b * datt + d]);
+    {
+      constexpr int NW8 = AB_TT * AB_KC / TILE_THREADS;
+      float v[NW8];
+#pragma unroll
+      for (int it = 0; it < NW8; ++it) {
+        const int i = tid + it * TILE_THREADS, tl = i / AB_KC, kc = i % AB_KC;
+        const int pos = t0 + tl + (kc >> 1) - pad;
+        const float* src = (kc & 1) ? a.wc : a.w;
+        const bool in = kc < nkc && pos >= 0 && pos < a.Ti;
+        v[it] = in ? src[rT + pos] : 0.0f;
+      }
+#pragma unroll
+      for (int it = 0; it < NW8; ++it) {
+        const int i = tid + it * TILE_THREADS;
+        s.win[(i / AB_KC) * WIN_LD + i % AB_KC] = from_f<bf16>(v[it]);
+      }
+    }
+    __syncthreads();
+    float acc[AB_DMAX / 32][4];
+#pragma unroll
+    for (int j = 0; j < AB_DMAX / 32; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+    for (int k16 = 0; k16 < AB_KC; k16 += 16) {
+      uint32_t fa[4];
+      ldmatrix_x4(fa, &s.win[(wm * 16 + r8 + (mi & 1) * 8) * WIN_LD + k16 +
+                             (mi >> 1) * 8]);
+#pragma unroll
+      for (int jj = 0; jj < AB_DMAX / 64; ++jj) {
+        if (2 * jj >= nj) break;
+        uint32_t fb[4];
+        ldmatrix_x4_trans(fb, &s.k2[(k16 + r8 + (mi & 1) * 8) * K2_LD + c0 +
+                                    jj * 16 + (mi >> 1) * 8]);
+        mma_bf16(acc[2 * jj], fa, fb);
+        mma_bf16(acc[2 * jj + 1], fa, fb + 2);
+      }
+    }
+    // proc for all of the thread's elements first, so that the loads overlap
+    float pv[AB_DMAX / 32][4];
+#pragma unroll
+    for (int j = 0; j < AB_DMAX / 32; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = t0 + wm * 16 + g + (e >> 1) * 8;
+        const int d = c0 + j * 8 + 2 * t4 + (e & 1);
+        pv[j][e] = t < a.Ti ? to_f<bf16>(a.proc[(rT + t) * datt + d]) : 0.0f;
+      }
+    }
+    float part[2] = {0.0f, 0.0f};   // positions g and g + 8 of the warp
+#pragma unroll
+    for (int j = 0; j < AB_DMAX / 32; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = c0 + j * 8 + 2 * t4 + (e & 1);
+        const float f = tanhf(s.qs[d] + acc[j][e] + pv[j][e]);
+        part[e >> 1] = fmaf(rnd<bf16>(f), s.vf[d], part[e >> 1]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+    }
+    if (t4 == 0) {
+      s.red[wn][wm * 16 + g] = part[0];
+      s.red[wn][wm * 16 + g + 8] = part[1];
+    }
+    __syncthreads();
+    if (tid < AB_TT && t0 + tid < a.Ti)
+      a.e[rT + t0 + tid] =
+          ((s.red[0][tid] + s.red[1][tid]) + s.red[2][tid]) + s.red[3][tid];
+  }
+}
+
+// Shapes the tensor-core forward takes: LSTM widths in whole 32-column
+// tiles, every input width in 16-byte pieces and each LSTM's depth in whole
+// K chunks, and the attention width and taps fwd_energy_kernel takes.
+// Other bf16 shapes, and fp32, take run_fwd (CUDA cores).
+static bool fwd_tc_ok(int P, int E, int A, int D, int datt, int ks) {
+  return A % 32 == 0 && D % 32 == 0 && P % 8 == 0 && E % 8 == 0 &&
+         (P + E + A) % TC_KC == 0 && (A + E + D) % TC_KC == 0 &&
+         datt % 64 == 0 && datt <= AB_DMAX && 2 * ks <= AB_KC;
+}
+
+struct FwdTc {
+  int za, zd, zq;            // K slices of the three products
+  float *part_a, *part_d, *part_q;
+  int *cnt_a, *cnt_d, *cnt_q;
+};
+
+// Carve the tensor-core forward's scratch (floats) from `base` (null: count
+// only); returns the number of floats.
+static size_t carve_fwd(FwdTc* c, float* base, int sms, int B, int P, int E,
+                        int A, int D, int datt) {
+  c->za = tc_slices(B, 4 * A, P + E + A, sms);
+  c->zd = tc_slices(B, 4 * D, A + E + D, sms);
+  c->zq = tc_slices(B, datt, A, sms);
+  const size_t sizes[] = {(size_t)c->za * B * 4 * A, (size_t)c->zd * B * 4 * D,
+                          (size_t)c->zq * B * datt,
+                          (size_t)tc_tiles(B, 4 * A), (size_t)tc_tiles(B, 4 * D),
+                          (size_t)tc_tiles(B, datt)};
+  float** ptrs[] = {&c->part_a, &c->part_d, &c->part_q, (float**)&c->cnt_a,
+                    (float**)&c->cnt_d, (float**)&c->cnt_q};
+  size_t off = 0;
+  for (int i = 0; i < 6; ++i) {
+    *ptrs[i] = base ? base + off : nullptr;
+    off += (sizes[i] + 3) / 4 * 4;   // 16-byte aligned pieces
+  }
+  return off;
+}
+
+static cudaError_t run_fwd_tc(const Fwd& f, float* scratch, int sms,
+                              cudaStream_t s) {
+  FwdTc c;
+  carve_fwd(&c, scratch, sms, f.B, f.P, f.E, f.A, f.D, f.datt);
+  const size_t sm_s = sizeof(float) * (f.Ti + SM_THREADS + CTX_COLS);
+  cudaError_t err = tc_product_prepare();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(scan_cell_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(TcSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fwd_energy_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(EnergySmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(softmax_ctx_kernel<bf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sm_s);
+  if (err != cudaSuccess) return err;
+  const int K1 = f.P + f.E + f.A, K2 = f.A + f.E + f.D;
+  const int mt = (f.B + TC_MT - 1) / TC_MT;
+  const dim3 g_a((4 * f.A + TC_NT - 1) / TC_NT, mt, c.za);
+  const dim3 g_d((4 * f.D + TC_NT - 1) / TC_NT, mt, c.zd);
+  const dim3 g_e((f.Ti + AB_TT - 1) / AB_TT, (f.B + FE_RB - 1) / FE_RB);
+  const dim3 g_s((f.E + CTX_COLS - 1) / CTX_COLS, f.B);
+  const size_t B = f.B;
+  const bf16* pre = (const bf16*)f.prenet;
+  bf16 *ga = (bf16*)f.ga, *gd = (bf16*)f.gd, *atth = (bf16*)f.atth,
+       *dech = (bf16*)f.dech;
+  for (int t = 0; t < f.T; ++t) {
+    const size_t ta = t * B * f.A, td = t * B * f.D, te = t * B * f.E;
+    const size_t pa = ta - B * f.A, pd = td - B * f.D, pe = te - B * f.E;
+    ScanSrc xa{pre + t * B * f.P, t ? f.ctx + pe : nullptr,
+               t ? atth + pa : nullptr, f.P, f.E, f.A};
+    ScanCell ca{f.b1, t ? f.attc + pa : nullptr,
+                f.keep_a ? f.keep_a + ta : nullptr, f.s_att, ga + 4 * ta,
+                f.attc + ta, atth + ta, f.A};
+    scan_cell_kernel<<<g_a, TC_THREADS, sizeof(TcSmem), s>>>(
+        xa, f.B, K1, (const bf16*)f.w1, 4 * f.A, c.part_a, c.cnt_a, ca);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = tc_product(atth + ta, f.A, f.B, f.A, (const bf16*)f.wqc, f.datt,
+                     c.zq, TcOut{f.q, c.part_q, c.cnt_q, nullptr, 0, 0}, s);
+    if (err != cudaSuccess) return err;
+    EnergyTc et{f.q, f.w, f.wc, (const bf16*)f.k2, (const bf16*)f.v,
+                (const bf16*)f.proc, f.e, f.B, f.Ti, f.datt, f.ks};
+    fwd_energy_kernel<<<g_e, TILE_THREADS, sizeof(EnergySmem), s>>>(et);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    softmax_ctx_kernel<bf16><<<g_s, SM_THREADS, sm_s, s>>>(
+        f.e, f.emask, (const bf16*)f.mem, f.w, f.wc, f.ctx + te, f.wst, f.fin,
+        t, f.B, f.Ti, f.E);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ScanSrc xd{atth + ta, f.ctx + te, t ? dech + pd : nullptr, f.A, f.E,
+               f.D};
+    ScanCell cd{f.b2, t ? f.decc + pd : nullptr,
+                f.keep_d ? f.keep_d + td : nullptr, f.s_dec, gd + 4 * td,
+                f.decc + td, dech + td, f.D};
+    scan_cell_kernel<<<g_d, TC_THREADS, sizeof(TcSmem), s>>>(
+        xd, f.B, K2, (const bf16*)f.w2, 4 * f.D, c.part_d, c.cnt_d, cd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // Shapes the tensor-core chain takes: LSTM widths in whole K chunks of the
 // product, an attention width of 64 or 128, at most AB_KC / 2 taps, an
 // encoder width in whole 16-byte loads. Other bf16 shapes take the
@@ -1257,27 +1717,53 @@ static bool tc_shapes_ok(int E, int A, int D, int datt, int ks) {
 
 extern "C" {
 
-// The forward scan (see run_fwd and the header). bf16 != 0: W is
-// __nv_bfloat16, else float. Stacks are time-major (T, B, ...); w, wc
-// (B, Ti) and fin (B,) must hold zeros. Returns cudaError_t.
+// Bytes of scratch the forward scan needs at these shapes (bf16 != 0 and
+// fwd_tc_ok: the tensor-core forward; else none). Returns cudaError_t.
+int train_scan_fwd_scratch(int bf16, int B, int Ti, int P, int E, int A,
+                           int D, int datt, int ks, size_t* bytes) {
+  *bytes = 0;
+  if (bf16 && fwd_tc_ok(P, E, A, D, datt, ks)) {
+    const int sms = device_sms();
+    if (sms == 0) return (int)cudaErrorNoDevice;
+    FwdTc c;
+    *bytes = sizeof(float) * carve_fwd(&c, nullptr, sms, B, P, E, A, D, datt);
+  }
+  return 0;
+}
+
+// The forward scan (see run_fwd, run_fwd_tc and the header). bf16 != 0: W
+// is __nv_bfloat16, else float. wqc: wq column-tiled (lstm_layout.py
+// to_col_tiles). Stacks are time-major (T, B, ...); w, wc (B, Ti) and fin
+// (B,) must hold zeros; scratch holds train_scan_fwd_scratch's bytes and is
+// cleared here. Returns cudaError_t.
 int train_scan_fwd(int bf16, const void* w1, const void* b1, const void* w2,
-                   const void* b2, const void* wq, const void* k2,
-                   const void* v, const void* prenet, const void* mem,
-                   const void* proc, const void* emask, const void* keep_a,
-                   const void* keep_d, float s_att, float s_dec, void* ga,
-                   void* gd, void* atth, void* dech, void* attc, void* decc,
-                   void* ctx, void* wst, void* q, void* e, void* w, void* wc,
-                   void* fin, int B, int T, int Ti, int P, int E, int A, int D,
-                   int datt, int ks, void* stream) {
+                   const void* b2, const void* wq, const void* wqc,
+                   const void* k2, const void* v, const void* prenet,
+                   const void* mem, const void* proc, const void* emask,
+                   const void* keep_a, const void* keep_d, float s_att,
+                   float s_dec, void* ga, void* gd, void* atth, void* dech,
+                   void* attc, void* decc, void* ctx, void* wst, void* q,
+                   void* e, void* w, void* wc, void* fin, void* scratch, int B,
+                   int T, int Ti, int P, int E, int A, int D, int datt, int ks,
+                   void* stream) {
   if (A % TS_UNITS || D % TS_UNITS || ks % 2 == 0)
     return (int)cudaErrorInvalidValue;
-  Fwd f{w1, w2, wq, k2, v, (const float*)b1, (const float*)b2,
+  Fwd f{w1, w2, wq, wqc, k2, v, (const float*)b1, (const float*)b2,
         prenet, mem, proc, (const float*)emask,
         (const unsigned char*)keep_a, (const unsigned char*)keep_d,
         s_att, s_dec, ga, gd, atth, dech, (float*)attc, (float*)decc,
         (float*)ctx, (float*)wst, (float*)q, (float*)e, (float*)w,
         (float*)wc, (int*)fin, B, T, Ti, P, E, A, D, datt, ks};
   cudaStream_t s = (cudaStream_t)stream;
+  if (bf16 && fwd_tc_ok(P, E, A, D, datt, ks)) {
+    size_t bytes;
+    int err = train_scan_fwd_scratch(bf16, B, Ti, P, E, A, D, datt, ks,
+                                     &bytes);
+    if (err != 0) return err;
+    cudaError_t ce = cudaMemsetAsync(scratch, 0, bytes, s);
+    if (ce != cudaSuccess) return (int)ce;
+    return (int)run_fwd_tc(f, (float*)scratch, device_sms(), s);
+  }
   return (int)(bf16 ? run_fwd<__nv_bfloat16>(f, s) : run_fwd<float>(f, s));
 }
 

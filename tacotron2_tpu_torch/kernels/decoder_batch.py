@@ -19,7 +19,10 @@ NaN).
 
 ``decoder_chunk`` takes the kernel (``csrc/decoder_batch.cu``) for CUDA
 tensors and the plain version for CPU tensors; nothing else picks between
-them. The CUDA source's header note gives the kernel's design and what
+them. A bf16 chunk of up to 32 rows runs as one persistent cooperative
+launch whose LSTM products are tensor-core products (weights packed once
+in ``pack_batch_decoder_params``); fp32 and other shapes take per-step
+launches. The CUDA source's header note gives the kernel's design and what
 bounds it on the H100.
 """
 
@@ -33,7 +36,8 @@ import torch
 
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.kernels import _build
-from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks, to_blocks
+from tacotron2_tpu_torch.kernels.lstm_layout import (MMA_UNITS, from_blocks,
+                                                     to_blocks, to_mma_tiles)
 
 NEG = -1e30       # additive attention mask (the TPU kernels' -inf stand-in)
 GATE_MASK = 1e3   # gate value of finished rows (reference model.py:495)
@@ -69,6 +73,11 @@ class BatchDecoderParams(NamedTuple):
     v: torch.Tensor     # (datt,)
     wpe: torch.Tensor   # (d + e, n + 1): mel columns 0:n, gate column n
     bpe: torch.Tensor   # (n + 1,) fp32
+    # the two LSTMs' [wi ; wh] again, in mma fragment order
+    # (lstm_layout.to_mma_tiles), for the persistent bf16 kernel; None at
+    # fp32 or where the widths are no whole unit groups and k16 steps
+    w1f: Optional[torch.Tensor] = None  # (a/4, (p+e+a)/16, 32, 8)
+    w2f: Optional[torch.Tensor] = None  # (d/4, (a+e+d)/16, 32, 8)
 
 
 class ChunkCarry(NamedTuple):
@@ -102,10 +111,14 @@ def pack_batch_decoder_params(model, dtype: torch.dtype) -> BatchDecoderParams:
     with torch.no_grad():
         def lstm(cell):
             w = torch.cat([cell.weight_ih, cell.weight_hh], dim=1).t()
+            wf = None
+            if (dtype == torch.bfloat16 and w.shape[0] % 16 == 0
+                    and w.shape[1] % (4 * MMA_UNITS) == 0):
+                wf = to_mma_tiles(w.to(dtype))
             return (to_blocks(w.to(dtype), _DEC_UNITS),
-                    (cell.bias_ih + cell.bias_hh).float().contiguous())
-        w1, b1 = lstm(dec.attention_rnn)
-        w2, b2 = lstm(dec.decoder_rnn)
+                    (cell.bias_ih + cell.bias_hh).float().contiguous(), wf)
+        w1, b1, w1f = lstm(dec.attention_rnn)
+        w2, b2, w2f = lstm(dec.decoder_rnn)
         conv = att.location_layer.location_conv.conv.weight     # (F, 2, ks)
         dense = att.location_layer.location_dense.linear_layer.weight  # (D, F)
         k2 = torch.einsum("fck,Df->kcD", conv.float(), dense.float())
@@ -120,7 +133,7 @@ def pack_batch_decoder_params(model, dtype: torch.dtype) -> BatchDecoderParams:
             w1=w1, b1=b1, w2=w2, b2=b2,
             wq=as_w(att.query_layer.linear_layer.weight.t()),
             k2=as_w(k2), v=as_w(att.v.linear_layer.weight[0]),
-            wpe=as_w(wpe), bpe=bpe.contiguous())
+            wpe=as_w(wpe), bpe=bpe.contiguous(), w1f=w1f, w2f=w2f)
 
 
 def attention_inputs(memory: torch.Tensor, processed: torch.Tensor,
@@ -234,8 +247,10 @@ def _cell(g: torch.Tensor, c: torch.Tensor):
 # ----------------------------------------------------------------- kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"decoder_chunk": [_I] + [_P] * 32 + [_I] * 11
+_SIGNATURES = {"decoder_chunk": [_I] + [_P] * 35 + [_I] * 11
                + [ctypes.c_float, _P],
+               "decoder_chunk_scratch": [_I] * 5 + [
+                   ctypes.POINTER(ctypes.c_size_t)],
                "decoder_chunk_limits": [_I] * 8 + [
                    ctypes.POINTER(ctypes.c_size_t),
                    ctypes.POINTER(ctypes.c_int)]}
@@ -273,6 +288,10 @@ def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
         "ctx": (carry.ctx, (B, e), f32), "prev": (carry.prev, (B, n), f32),
         "fin": (carry.fin, (B,), i32), "lens": (carry.lens, (B,), i32),
     }
+    for name, t, k, h in (("w1f", fp.w1f, p + e + a, a),
+                          ("w2f", fp.w2f, a + e + d, d)):
+        if t is not None:
+            expect[name] = (t, (h // MMA_UNITS, k // 16, 32, 8), W)
     if kp1 is not None:
         expect["kp1"] = (kp1, (chunk_steps, B, p), f32)
         expect["kp2"] = (kp2, (chunk_steps, B, p), f32)
@@ -326,14 +345,19 @@ def decoder_chunk(fp: BatchDecoderParams, carry: ChunkCarry,
     align = torch.empty(cs, B, T, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()
     lib = _build.load("decoder_batch", _SIGNATURES)
+    nbytes = ctypes.c_size_t(0)
+    lib.decoder_chunk_scratch(B, p, e, a, d, ctypes.byref(nbytes))
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     status = lib.decoder_chunk(
         int(fp.w1.dtype == torch.bfloat16),
         *(x.data_ptr() for x in (fp.pre1, fp.pre2, fp.w1, fp.b1, fp.w2,
-                                 fp.b2, fp.wq, fp.k2, fp.v, fp.wpe, fp.bpe,
-                                 mem, proc, emask)),
+                                 fp.b2, fp.wq, fp.k2, fp.v, fp.wpe, fp.bpe)),
+        ptr(fp.w1f), ptr(fp.w2f),
+        *(x.data_ptr() for x in (mem, proc, emask)),
         ptr(kp1), ptr(kp2),
         *(x.data_ptr() for x in (h1, c1, h2, c2, w, wc, ctx, prev, fin,
-                                 lens, a2, q, energies, mel, gate, align)),
+                                 lens, a2, q, energies, mel, gate, align,
+                                 scratch)),
         B, T, n, p, e, a, d, datt, ks, cs, int(t0), float(gate_logit),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "decoder_chunk")

@@ -42,7 +42,7 @@ from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks
 
 # The packed weights are the batched chunk's (``BatchDecoderParams``:
 # row-major (in, out), LSTM weights block-major, compute dtype) except that
-# ``k2`` stays fp32.
+# ``k2`` stays fp32 and there is no fragment-order copy of the LSTMs.
 FusedDecoderParams = BatchDecoderParams
 
 _KERNELS = ("prenet_kernel", "lstm_row_kernel", "query_kernel",
@@ -57,7 +57,7 @@ def pack_decoder_params(model, dtype: torch.dtype) -> FusedDecoderParams:
         conv = att.location_layer.location_conv.conv.weight     # (F, 2, ks)
         dense = att.location_layer.location_dense.linear_layer.weight
         k2 = torch.einsum("fck,Df->kcD", conv.float(), dense.float())
-    return base._replace(k2=k2.contiguous())
+    return base._replace(k2=k2.contiguous(), w1f=None, w2f=None)
 
 
 def attention_inputs(memory: torch.Tensor, processed: torch.Tensor,

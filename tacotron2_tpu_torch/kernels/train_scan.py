@@ -5,6 +5,10 @@ kernels and their plain versions.
 ``tacotron2_tpu/kernels/train_scan.py`` ``_make_kernel`` (via ``_scan_call``
 and ``forward_residuals``): the whole forward over T steps, emitting the
 eight residual stacks of ``models/decoder_vjp.py`` (``Residuals``).
+At bf16 the forward's two LSTM products run on the tensor cores with the
+cell in their epilogue, and its energies as a tensor-core location
+product; at fp32, and at bf16 shapes outside that range
+(``csrc/train_scan.cu`` ``fwd_tc_ok``), on the CUDA cores.
 ``backward_chain`` replaces its ``_make_bwd_kernel`` (via
 ``_bwd_scan_call`` and ``backward_chain``) in the rematerialising form: the
 reverse-time data-gradient chain, with d_processed, d_K2 and d_v
@@ -53,6 +57,8 @@ Keep = Tuple[torch.Tensor, torch.Tensor]
 class ScanWeights(NamedTuple):
     """The decoder core's weights as the scan kernels take them
     (``pack_scan_weights``), in the operand dtype unless noted."""
+    # block-major at 8 units: the CUDA-core forward's slabs, and the column
+    # tiles of 32 (4 gates x 8 units) of the tensor-core forward's product
     w1: torch.Tensor    # (A/8, P+E+A, 32) attention LSTM [wi ; wh], block-major
     b1: torch.Tensor    # (4A,) fp32 summed bias
     w2: torch.Tensor    # (D/8, A+E+D, 32) decoder LSTM, block-major
@@ -66,7 +72,8 @@ class ScanWeights(NamedTuple):
     wta: torch.Tensor   # (ceil(K1/32), 4A, 32) attention LSTM [wi ; wh]^T
     wtd: torch.Tensor   # (ceil(K2/32), 4D, 32) decoder LSTM [wi ; wh]^T
     wqt: torch.Tensor   # (A/32, datt, 32) query (out, in) = wq^T
-    wqc: torch.Tensor   # (datt/32, A, 32) query (in, out) = wq
+    wqc: torch.Tensor   # (datt/32, A, 32) query (in, out) = wq, the
+    #                     forward's and the backward's query product
 
 
 class Residuals(NamedTuple):
@@ -273,8 +280,9 @@ backward_chain_plain.calls = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "train_scan_fwd": [_I] + [_P] * 13 + [_F, _F] + [_P] * 13 + [_I] * 9
+    "train_scan_fwd": [_I] + [_P] * 14 + [_F, _F] + [_P] * 14 + [_I] * 9
     + [_P],
+    "train_scan_fwd_scratch": [_I] * 9 + [ctypes.POINTER(ctypes.c_size_t)],
     "train_scan_bwd": [_I] + [_P] * 21 + [_F, _F] + [_P] * 9 + [_I] * 9
     + [_P],
     "train_scan_bwd_scratch": [_I] * 10 + [ctypes.POINTER(ctypes.c_size_t)],
@@ -359,13 +367,21 @@ def forward_residuals(sw: ScanWeights, prenet: torch.Tensor,
     w = torch.zeros(B, Ti, device=dev)
     wc = torch.zeros_like(w)
     fin = torch.zeros(B, dtype=torch.int32, device=dev)
+    bf16 = int(W == torch.bfloat16)
     lib = _build.load("train_scan", _SIGNATURES)
+    nbytes = ctypes.c_size_t(0)
+    with torch.cuda.device(dev):
+        _build.check(lib, lib.train_scan_fwd_scratch(
+            bf16, B, Ti, P, E, A, D, datt, ks, ctypes.byref(nbytes)),
+            "train_scan_fwd_scratch")
+    scratch = torch.empty(max(nbytes.value, 1), dtype=torch.uint8,
+                          device=dev)
     status = lib.train_scan_fwd(
-        int(W == torch.bfloat16),
-        *(x.data_ptr() for x in (sw.w1, sw.b1, sw.w2, sw.b2, sw.wq, sw.k2,
-                                 sw.v, prenet, mem, proc, emask)),
+        bf16,
+        *(x.data_ptr() for x in (sw.w1, sw.b1, sw.w2, sw.b2, sw.wq, sw.wqc,
+                                 sw.k2, sw.v, prenet, mem, proc, emask)),
         ka, kd, _scale(p_att), _scale(p_dec),
-        *(x.data_ptr() for x in (*res, q, en, w, wc, fin)),
+        *(x.data_ptr() for x in (*res, q, en, w, wc, fin, scratch)),
         B, T, Ti, P, E, A, D, datt, ks,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "train_scan_fwd")

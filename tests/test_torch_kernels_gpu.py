@@ -546,3 +546,128 @@ def test_mel_kernel_rejects_what_it_does_not_take(cuda):
         mk.mel_spectrogram_fused(y[:, :512], MelConfig())
     got = mk.mel_spectrogram_fused(y, MelConfig(hop_length=1024))
     assert got.shape == (1, 80, 1 + 4000 // 1024)
+
+
+# ------------------------------------------------------ slice 5: rows 1, 5
+
+def kernel_names(run):
+    """Names of the CUDA kernels one run() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("T_in", [64, 192])
+@pytest.mark.parametrize("B", [1, 13, 128, 200])
+def test_scan_forward_tensor_core_shapes_match_plain(cuda, B, T_in,
+                                                     dropout):
+    """Row 1 at bf16 on the tensor cores (B=200: two 128-row tiles), every
+    residual stack within SCAN_REL; the CUDA-core LSTM kernel never runs."""
+    sw, pre, mem, proc, emask, kw = scan_case(cuda, torch.bfloat16, B, T_in,
+                                              6, dropout)
+    run = lambda: ts.forward_residuals(sw, pre, mem, proc, emask, **kw)
+    names = kernel_names(run)
+    assert any("scan_cell_kernel" in n for n in names), set(names)
+    assert not any("scan_lstm_kernel" in n for n in names), set(names)
+    got = run()
+    want = ts.forward_residuals_plain(sw, pre, mem, proc, emask, **kw)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, ts.Residuals._fields)
+    assert max(errs.values()) <= SCAN_REL[torch.bfloat16], errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [
+    CFG.replace(attention_rnn_dim=40, decoder_rnn_dim=40),
+    CFG.replace(attention_dim=256)], ids=["lstm40", "datt256"])
+def test_scan_forward_cuda_core_shapes_match_plain(cuda, cfg):
+    """Row 1 at bf16 outside the tensor-core range (B=13, T_in=45, with
+    dropout) takes the CUDA-core kernels, every stack within SCAN_REL."""
+    sw, pre, mem, proc, emask, kw = scan_case(cuda, torch.bfloat16, 13, 45,
+                                              6, True, cfg=cfg)
+    run = lambda: ts.forward_residuals(sw, pre, mem, proc, emask, **kw)
+    names = kernel_names(run)
+    assert any("scan_lstm_kernel" in n for n in names), set(names)
+    assert not any("scan_cell_kernel" in n for n in names), set(names)
+    got = run()
+    want = ts.forward_residuals_plain(sw, pre, mem, proc, emask, **kw)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, ts.Residuals._fields)
+    assert max(errs.values()) <= SCAN_REL[torch.bfloat16], errs
+
+
+def persistent_case(device, B, cs, keep, gate_logit=1e30):
+    """A bf16 chunk of cs steps at T=37 from a zero carry (the narrow
+    widths of CFG): (args, kwargs)."""
+    model = tm.Tacotron2(CFG, torch.Generator().manual_seed(0)).to(device)
+    fp = db.pack_batch_decoder_params(model, torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(2 + B)
+    T = 37
+    mem = torch.randn(B, T, 128, generator=g, device=device) * 0.5
+    proc = torch.randn(B, T, 128, generator=g, device=device) * 0.5
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
+    mask = torch.arange(T, device=device)[None] < lengths[:, None]
+    mem, proc, emask = db.attention_inputs(mem, proc, mask, torch.bfloat16)
+    n, p = fp.pre1.shape
+    kp = (None, None)
+    if keep:
+        kp = tuple((torch.rand(cs, B, p, generator=g, device=device) < 0.5
+                    ).float() for _ in range(2))
+    kw = dict(t0=5, chunk_steps=cs, gate_logit=gate_logit, kp1=kp[0],
+              kp2=kp[1])
+    return (fp, zero_carry(B, T, n, device), mem, proc, emask), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("cs", [1, 64])
+@pytest.mark.parametrize("B", [1, 4, 8, 13, 21])
+def test_persistent_chunk_matches_plain(cuda, B, cs, keep):
+    """Row 5 at bf16, one persistent launch: every output and carry field
+    within DEC_REL, finished and lengths exactly."""
+    args, kw = persistent_case(cuda, B, cs, keep)
+    got = db.decoder_chunk(*args, **kw)
+    want = db.decoder_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_chunks_close(got, want, DEC_REL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 21])
+def test_persistent_chunk_latches_mid_chunk(cuda, B):
+    """A gate threshold that some rows cross mid-chunk (the midpoint of the
+    widest gap between the plain version's gate logits in their middle
+    half, so no logit sits near it): finished and lengths equal the plain
+    version's, every field within DEC_REL."""
+    cs = 16
+    args, kw = persistent_case(cuda, B, cs, False)
+    free = db.decoder_chunk_plain(*args, **kw).gate.flatten().sort().values
+    mid = free[len(free) // 4:3 * len(free) // 4]
+    i = int((mid[1:] - mid[:-1]).argmax())
+    kw["gate_logit"] = float(mid[i] + mid[i + 1]) / 2
+    got = db.decoder_chunk(*args, **kw)
+    want = db.decoder_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(want.carry.fin.any())
+    assert int(want.carry.lens.min()) < kw["t0"] + cs
+    assert_chunks_close(got, want, DEC_REL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_persistent_chunk_is_one_deterministic_launch(cuda):
+    """A 64-step bf16 chunk is one kernel launch (plus the scratch's
+    memset), and two runs give the same bits."""
+    args, kw = persistent_case(cuda, 13, 64, True)
+    run = lambda: db.decoder_chunk(*args, **kw)
+    names = kernel_names(run)
+    assert sum("persistent_chunk_kernel" in n for n in names) == 1, names
+    assert not any("lstm_kernel" in n for n in names), names
+    a, b = run(), run()
+    for x, y in zip((a.mel, a.gate, a.align, *a.carry),
+                    (b.mel, b.gate, b.align, *b.carry)):
+        assert torch.equal(x, y)

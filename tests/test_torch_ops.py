@@ -14,7 +14,9 @@ import jax.numpy as jnp
 from tacotron2_tpu.ops import layers as jl
 from tacotron2_tpu.ops import lstm as jlstm
 
-from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks, to_blocks
+from tacotron2_tpu_torch.kernels.lstm_layout import (from_blocks,
+                                                     from_mma_tiles,
+                                                     to_blocks, to_mma_tiles)
 from tacotron2_tpu_torch.ops import initializers as ti
 from tacotron2_tpu_torch.ops import layers as tl
 from tacotron2_tpu_torch.ops import lstm as tlstm
@@ -150,3 +152,68 @@ def test_lstm_block_layout_round_trip():
     for j, g, u in [(0, 0, 0), (1, 2, 3), (3, 3, 1)]:
         assert torch.equal(wb[j, :, g * U + u], w[:, g * H + j * U + u])
     assert torch.equal(from_blocks(wb), w)
+
+
+def test_lstm_mma_layout_round_trip():
+    """The persistent decoder chunk's fragment-order layout: group j's k16
+    step s, lane l, value v holds the A-fragment element PTX gives that
+    lane (a0..a3, lower k first) of the 16 gate columns of units 4j..4j+3,
+    gate-major; from_mma_tiles inverts to_mma_tiles."""
+    K, H = 48, 16
+    w = torch.arange(K * 4 * H, dtype=torch.float32).reshape(K, 4 * H)
+    wm = to_mma_tiles(w)
+    assert wm.shape == (H // 4, K // 16, 32, 8)
+    for j, s, lane, v in [(0, 0, 0, 0), (1, 2, 13, 5), (3, 1, 31, 7),
+                          (2, 0, 6, 2)]:
+        g, t = lane // 4, lane % 4
+        row = g + 8 * ((v // 2) % 2)
+        k = 16 * s + 2 * t + v % 2 + 8 * (v // 4)
+        q, u = row // 4, row % 4
+        assert wm[j, s, lane, v] == w[k, q * H + 4 * j + u]
+    assert torch.equal(from_mma_tiles(wm), w)
+
+
+@pytest.mark.parametrize("B,K,H", [(1, 48, 16), (8, 96, 32), (21, 64, 8)])
+def test_persistent_lstm_product_emulated(B, K, H):
+    """The persistent chunk's LSTM product in swap-AB form, emulated lane by
+    lane as mma.sync.m16n8k16 defines its fragments: A from the
+    fragment-order weights, B = X^T from the rows (8 a tile, zero rows past
+    B), the C fragments gathered into gate-major rows q * 4 + u; the cell
+    on them equals the cell on X @ W (fp32, sums in another order)."""
+    g0 = torch.Generator().manual_seed(B + K)
+    w = torch.randn(K, 4 * H, generator=g0)
+    x = torch.randn(B, K, generator=g0)
+    bias = torch.randn(4 * H, generator=g0)
+    c = torch.randn(B, H, generator=g0)
+    wm = to_mma_tiles(w)
+    nb8 = -(-B // 8)
+    xp = torch.zeros(nb8 * 8, K)
+    xp[:B] = x
+    gates = torch.zeros(B, 4 * H)
+    for j in range(H // 4):
+        cfrag = torch.zeros(16, nb8 * 8)
+        for s in range(K // 16):
+            a = torch.zeros(16, 16)
+            bt = torch.zeros(16, nb8 * 8)
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                f = wm[j, s, lane]
+                for i in range(2):
+                    a[g, 2 * t + i] = f[i]
+                    a[g + 8, 2 * t + i] = f[2 + i]
+                    a[g, 2 * t + 8 + i] = f[4 + i]
+                    a[g + 8, 2 * t + 8 + i] = f[6 + i]
+                for nb in range(nb8):
+                    row = xp[nb * 8 + g, 16 * s:16 * s + 16]
+                    for i in range(2):
+                        bt[2 * t + i, nb * 8 + g] = row[2 * t + i]
+                        bt[2 * t + 8 + i, nb * 8 + g] = row[2 * t + 8 + i]
+            cfrag += a @ bt
+        for q in range(4):
+            for u in range(4):
+                gates[:, q * H + 4 * j + u] = cfrag[q * 4 + u, :B]
+    from tacotron2_tpu_torch.kernels.decoder_batch import _cell
+    h, cn = _cell(gates + bias, c)
+    h_want, c_want = _cell(x @ w + bias, c)
+    torch.testing.assert_close(h, h_want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(cn, c_want, atol=1e-5, rtol=1e-5)

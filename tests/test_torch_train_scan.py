@@ -353,3 +353,52 @@ def test_tiled_location_identities_match_the_conv_form(T_in, ks):
     assert_fields([loc[:, :T_in], dk2.reshape(ks, 2, datt), dwin],
                   [loc_want, dk2_want, dwin_want],
                   ["location term", "d_K2", "window cotangents"], 1e-5)
+
+
+@pytest.mark.parametrize("M,H,nslice", [(13, 32, 2), (128, 64, 2),
+                                        (200, 32, 1)])
+def test_forward_cell_epilogue_index_map(M, H, nslice):
+    """The bf16 forward's scan_cell_kernel, emulated: the product of the
+    rows with the block-major weights (lstm_layout.to_blocks at 8 units,
+    read as column tiles of 32) in K slices added in slice order, each
+    m16n8 accumulator element (i, j, e) of a warp (wm, wn) of a block
+    (64 columns, 128 rows) taken as gate j of unit 8 * tile + 2 t4 + (e & 1)
+    of row 16 i + g + 8 (e >> 1). The cell on that map equals the plain
+    cell on X @ W (fp32; the sums in another order)."""
+    from tacotron2_tpu_torch.kernels.decoder_batch import _cell
+    from tacotron2_tpu_torch.kernels.lstm_layout import to_blocks
+    K = 96
+    r = np.random.RandomState(M + H)
+    x = torch.from_numpy(r.randn(M, K).astype(np.float32))
+    w = torch.from_numpy(r.randn(K, 4 * H).astype(np.float32) * 0.2)
+    bias = torch.from_numpy(r.randn(4 * H).astype(np.float32))
+    c = torch.from_numpy(r.randn(M, H).astype(np.float32))
+    wb = to_blocks(w, 8)                          # (H / 8, K, 32)
+    wcols = wb.permute(1, 0, 2).reshape(K, -1)    # column tile * 32 + c
+    nch = K // 32
+    prod = torch.zeros(M, 4 * H)
+    for z in range(nslice):                       # slices added in order
+        k0, k1 = 32 * (z * nch // nslice), 32 * ((z + 1) * nch // nslice)
+        prod = prod + x[:, k0:k1] @ wcols[k0:k1]
+    gates = torch.full((M, 4 * H), float("nan"))
+    for m0 in range(0, M, 128):
+        for n0 in range(0, 4 * H, 64):
+            for warp in range(8):
+                wm, wn = warp >> 1, warp & 1
+                tile = n0 // 32 + wn
+                for lane in range(32):
+                    g, t4 = lane >> 2, lane & 3
+                    for i in range(2):
+                        for j in range(4):
+                            for e in range(4):
+                                m = m0 + wm * 32 + i * 16 + g + (e >> 1) * 8
+                                n = n0 + wn * 32 + j * 8 + 2 * t4 + (e & 1)
+                                if m >= M:
+                                    continue
+                                unit = tile * 8 + 2 * t4 + (e & 1)
+                                gates[m, j * H + unit] = prod[m, n]
+    assert not torch.isnan(gates).any()
+    h, cn = _cell(gates + bias, c)
+    h_want, c_want = _cell(x @ w + bias, c)
+    torch.testing.assert_close(h, h_want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(cn, c_want, atol=1e-5, rtol=1e-5)
