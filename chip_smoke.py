@@ -10,8 +10,9 @@ on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel source of ``tacotron2_tpu_torch/kernels/csrc``;
-3. encoder BiLSTM kernel against its plain version at full width (B=8,
-   T=128, N=512, H=256, bf16), timed beside cuDNN's bidirectional LSTM;
+3. encoder BiLSTM kernel against its plain version at full width (N=512,
+   H=256, bf16; B=8 and B=1 at T 128, 48 and 32), timed beside cuDNN's
+   bidirectional LSTM, one launch a call (torch.profiler);
 4. decoder chunk kernel against its plain version at full width (T_in=128,
    one 64-step chunk: B=8 bf16, again with prenet keep masks, once at fp32;
    B=1 bf16; B=13 bf16 with keep masks), every output and carry field
@@ -27,7 +28,8 @@ on failure:
    width: the single-utterance decoder chunk (B=1; T_in 64, 128, 192; with
    and without keep masks; chunks of 32 and 64; bf16 and fp32) field by
    field (STEP_REL) with perturbed attention rejected, timed beside the
-   batched chunk's entry called at B=1; the int8 product at the two decoder
+   batched chunk's entry called at B=1, a bf16 chunk one launch of the
+   persistent kernel (torch.profiler); the int8 product at the two decoder
    cells' shapes (B=1 and 8, and ragged shapes), timed beside
    ``torch.matmul`` on a bf16 copy dequantised ahead of time; the fused mel
    kernel (its DFT as three TF32 tensor-core products) on 16 waveforms of
@@ -46,10 +48,12 @@ on failure:
    over 64 steps (also at T_in 64 and 192) and 512 steps, the backward's
    accumulators bit-identical between two runs, the encoder BiLSTM forward
    and backward at B=128, each field within its limit and perturbed outputs
-   rejected;
+   rejected, the forward also timed at B=128 and B=32 at T 48 and 32;
 9. training: ``train_step`` at B=128, T_in=128, T_out=512, bf16 (one warm
    step, three timed): every training kernel must launch and no plain
-   version run; a breakdown by stage and a profile of one step;
+   version run; a breakdown by stage and a profile of one step; then the
+   step's loss and encoder gradients with row 3 against the same step with
+   row 3's plain version swapped in (SWAP_REL_BF16);
 10. one fp32 training step on the card against the CPU plain versions, then
     with cuDNN's convolutions, and each convolution against fp64.
 
@@ -204,55 +208,116 @@ def bound(nbytes: float, flops, dtype: str = ""):
 
 # ------------------------------------------------------------------ phases
 
-def encoder_phase(model, dev, card):
-    B, T = 8, 128
-    lstm = model.encoder.lstm
-    N, H = lstm.input_size, lstm.hidden_size
+def _encoder_inputs(lstm, dev, B, T, seed):
+    """Seeded encoder outputs (B, T, N) after the relu, in bf16, and their
+    per-row length-reversed copy (ragged lengths, row 0 full)."""
     bf16 = torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(11)
-    xs = torch.relu(torch.randn(B, T, N, generator=g, device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.relu(torch.randn(B, T, lstm.input_size, generator=g,
+                                device=dev))
     lengths = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev)
     lengths[0] = T
     xsr = _reverse_by_length(xs, lengths).to(bf16).contiguous()
-    xs = xs.to(bf16).contiguous()
-    wf, bf = el.pack_direction(lstm_weights(lstm, "_l0"), bf16)
-    wb, bb = el.pack_direction(lstm_weights(lstm, "_l0_reverse"), bf16)
-    args = (wf, bf, wb, bb, xs, xsr)
-    got = el.bilstm_forward(*args)
-    want = el.bilstm_forward_plain(*args)
-    torch.cuda.synchronize()
-    err = 0.0
-    for name, a, b in zip(("gf", "gb", "hf", "hb", "cf", "cb"), got, want):
-        e, ok = worst(a, b, ENC_TOL)
-        err = max(err, e)
-        if not ok:
-            fail(f"encoder kernel disagrees with its plain version on {name}:"
-                 f" max |err| {e} beyond atol/rtol {ENC_TOL}")
-    ms = cuda_ms(lambda: el.bilstm_forward(*args), iters=20)
-    plain_ms = cuda_ms(lambda: el.bilstm_forward_plain(*args),
-                       iters=3, warmup=1)
-    ref = torch.nn.LSTM(N, H, batch_first=True, bidirectional=True).to(dev)
+    return xs.to(bf16).contiguous(), xsr
+
+
+def _cudnn_bilstm(lstm, dev):
+    """The same weights in ``torch.nn.LSTM`` (bidirectional, bf16): cuDNN,
+    the yardstick ``library_ms`` times."""
+    ref = torch.nn.LSTM(lstm.input_size, lstm.hidden_size, batch_first=True,
+                        bidirectional=True).to(dev)
     ref.load_state_dict(lstm.state_dict())
-    ref = ref.to(bf16)
+    ref = ref.to(torch.bfloat16)
     ref.flatten_parameters()
-    with torch.no_grad():
-        library_ms = cuda_ms(lambda: ref(xs), iters=20)
+    return ref
+
+
+def _encoder_work(B, T, N, H, wsz=2):
+    """Bytes one forward call must move (each input read once, each output
+    written once), its FLOPs, and the bytes each step must touch whatever
+    the kernel keeps (both directions' weights and the step's inputs and
+    outputs, read or written once a step)."""
     K = N + H
-    nbytes = (2 * B * T * N * 2 + 2 * (K * 4 * H * 2 + 4 * H * 4)
-              + 2 * T * B * (4 * H * 2 + H * 2 + H * 4))
-    flops = 2 * 2 * T * B * K * 4 * H
-    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
-    print(f"encoder [{card}] B={B} T={T} N={N} H={H} bf16: max |err| {err:.3e}"
-          f" (atol {ENC_TOL[0]}, rtol {ENC_TOL[1]}); kernel {ms:.4f} ms, plain"
-          f" {plain_ms:.4f} ms, cuDNN bidirectional LSTM {library_ms:.4f} ms,"
-          f" bound {bound_ms:.5f} ms ({bound_by})")
+    weights = 2 * (K * 4 * H * wsz + 4 * H * 4)
+    io = 2 * B * T * N * wsz + 2 * T * B * (4 * H * wsz + H * wsz + H * 4)
+    return weights + io, 2 * 2 * T * B * K * 4 * H, weights + io / T
+
+
+def encoder_shapes(packed, lstm, ref, dev, card, shapes, seed):
+    """Row 3 at each (B, T) of ``shapes`` against its plain version
+    (ENC_TOL), timed beside cuDNN, with its bound and per-step byte floor;
+    returns {"B=.. T=..": numbers}."""
+    N, H = lstm.input_size, lstm.hidden_size
+    out = {}
+    for B, T in shapes:
+        xs, xsr = _encoder_inputs(lstm, dev, B, T, seed + B + T)
+        got = el.bilstm_forward(*packed, xs, xsr)
+        want = el.bilstm_forward_plain(*packed, xs, xsr)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b in zip(("gf", "gb", "hf", "hb", "cf", "cb"), got,
+                              want):
+            e, ok = worst(a, b, ENC_TOL)
+            err = max(err, e)
+            if not ok:
+                fail(f"encoder kernel (B={B} T={T}) disagrees with its plain"
+                     f" version on {name}: max |err| {e} beyond atol/rtol "
+                     f"{ENC_TOL}")
+        ms = cuda_ms(lambda: el.bilstm_forward(*packed, xs, xsr), iters=20)
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: ref(xs), iters=20)
+        nbytes, flops, step_b = _encoder_work(B, T, N, H)
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        floor_ms = T * step_b / HBM_BYTES_PER_S * 1e3
+        design, need, active = el.forward_plan(B, N, H, torch.bfloat16, dev)
+        print(f"encoder [{card}] B={B} T={T} N={N} H={H} bf16 ({design}: "
+              f"{need} clusters of 16, the card holds {active} at once): "
+              f"max |err| {err:.3e} (atol {ENC_TOL[0]}, rtol {ENC_TOL[1]});"
+              f" kernel {ms:.4f} ms ({ms / T * 1e3:.2f} us a step), cuDNN "
+              f"bidirectional LSTM {library_ms:.4f} ms, bound {bound_ms:.5f}"
+              f" ms ({bound_by}), per-step floor {step_b / 1e6:.2f} MB, "
+              f"{floor_ms:.4f} ms at the HBM rate")
+        out[f"B={B} T={T}"] = dict(max_abs_err=err, ms=ms,
+                                   library_ms=library_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, floor_ms=floor_ms)
+    return out
+
+
+def encoder_phase(model, dev, card):
+    """Row 3 at the serving shapes: B=8 and B=1 at T 32, 48 and 128, each
+    against its plain version and timed beside cuDNN; the kernel line's
+    numbers at B=8, T=128; one launch a call (torch.profiler)."""
+    lstm = model.encoder.lstm
+    packed = el.pack_bilstm(lstm_weights(lstm, "_l0"),
+                            lstm_weights(lstm, "_l0_reverse"), torch.bfloat16)
+    ref = _cudnn_bilstm(lstm, dev)
+    shapes = encoder_shapes(packed, lstm, ref, dev, card,
+                            [(B, T) for B in (8, 1) for T in (128, 48, 32)],
+                            11)
+    xs, xsr = _encoder_inputs(lstm, dev, 8, 128, 11 + 8 + 128)
+    # a bf16 forward must be one launch of the cluster kernel
+    names = [k for k in profiled_kernels(
+        lambda: el.bilstm_forward(*packed, xs, xsr))
+        if k in ("encoder_cluster_kernel", "encoder_step")]
+    if names != ["encoder_cluster_kernel"]:
+        fail(f"a bf16 encoder forward launched {len(names)} kernels "
+             f"({sorted(set(names))}), not one cluster kernel")
+    print(f"encoder [{card}] B=8 T=128 under torch.profiler: one launch of "
+          f"encoder_cluster_kernel (the first design launched encoder_step "
+          f"once a step)")
+    plain_ms = cuda_ms(lambda: el.bilstm_forward_plain(*packed, xs, xsr),
+                       iters=3, warmup=1)
+    r = shapes["B=8 T=128"]
+    print(f"encoder [{card}] B=8 T=128: plain {plain_ms:.4f} ms")
     return {"name": "encoder_lstm_fwd", "route": "cuda",
             "source": "tacotron2_tpu_torch/kernels/csrc/encoder_lstm.cu",
             "replaces": "tacotron2_tpu/kernels/encoder_lstm.py:71",
-            "max_abs_err": err, "tolerance": {"atol": ENC_TOL[0],
-                                              "rtol": ENC_TOL[1]},
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+            "tolerance": {"atol": ENC_TOL[0], "rtol": ENC_TOL[1]},
+            "ms": r["ms"], "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "floor_ms": r["floor_ms"],
+            "library_ms": r["library_ms"], "launches_per_call": len(names),
+            "shapes": shapes}
 
 
 def _chunk_inputs(model, cfg, dev, dtype, B, T):
@@ -534,17 +599,31 @@ def breakdown_phase(model, cfg, dev, card):
           + profile_kernels(run, top=10))
 
 
+def _device_events(run, activities, tries=3):
+    """torch.profiler's device events of one run(). Now and then a short
+    session on the card's machine records no device event at all, so the
+    session is widened by 50 ms of idle time on each side of run(), and a
+    session that still records none is taken again, up to ``tries``
+    times."""
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            time.sleep(0.05)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    fail("the profiler saw no device activity")
+
+
 def profiled_kernels(run):
     """The names of the CUDA kernels (and memsets, copies) one run()
     launches, in launch order, by torch.profiler."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
+    events = sorted(_device_events(run, [ProfilerActivity.CUDA]),
                     key=lambda e: e.time_range.start)
-    if not events:
-        fail("the profiler saw no device activity")
     return [e.name.split("(")[0].split("<")[0].replace("void ", "")
             for e in events]
 
@@ -552,14 +631,8 @@ def profiled_kernels(run):
 def profile_kernels(run, top: int) -> str:
     """torch.profiler over one run(): the device window, the kernels' busy
     time, the idle share and the ``top`` kernels by total time."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        fail("the profiler saw no device activity")
+    kernels = _device_events(run, [ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
     start = min(e.time_range.start for e in kernels)
     end = max(e.time_range.end for e in kernels)
     busy = sum(e.time_range.end - e.time_range.start for e in kernels)
@@ -637,10 +710,19 @@ UTTERANCE = LONG_TEXTS[1]   # 128-symbol bucket
 UTTERANCE_STEPS = 200
 
 
+# csrc/decoder_step.cu's kernels: the persistent chunk and the per-step
+# kernels of its first design (the fp32 chunk's)
+STEP_KERNELS = ("persistent_chunk_kernel", "prenet_kernel", "lstm_row_kernel",
+                "query_kernel", "energy_kernel", "softmax_ctx_kernel",
+                "proj_kernel")
+
+
 def step_phase(model, cfg, dev, card):
     """Row 6 at full width, B=1: every shape class against the plain
     version; timed at T_in=128, one 64-step chunk, beside the batched
-    chunk's entry (row 5) called at B=1 on the same inputs."""
+    chunk's entry (row 5) called at B=1 on the same inputs, with its
+    per-step byte floor; a bf16 chunk must be one launch of the persistent
+    kernel (torch.profiler)."""
     n = cfg.n_mel_channels * cfg.n_frames_per_step
     a, d, e = (cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
                cfg.encoder_embedding_dim)
@@ -695,6 +777,20 @@ def step_phase(model, cfg, dev, card):
         if (dtype, T, cs, keep) == (torch.bfloat16, 128, 64, False):
             _check_catches(got, want, limits)
         if (T, cs, keep) == (128, 64, False):
+            if dtype == torch.bfloat16:
+                names = profiled_kernels(lambda: ds.decoder_step_chunk(
+                    *args, **kw))
+                chunk = [k for k in names if k in STEP_KERNELS]
+                if chunk != ["persistent_chunk_kernel"]:
+                    fail(f"a bf16 single-utterance chunk launched {chunk}, "
+                         f"not one persistent kernel")
+                per_chunk = {"kernels": len(chunk),
+                             "set_up": len(names) - len(chunk)}
+                print(f"decoder step [{card}] {label} under torch.profiler: "
+                      f"{len(chunk)} launch of {chunk[0]} (the first design "
+                      f"launched 7 x {cs} = {7 * cs}); set-up: "
+                      f"{len(names) - len(chunk)} ("
+                      f"{', '.join(sorted(set(names) - set(chunk)))})")
             ms = cuda_ms(lambda: ds.decoder_step_chunk(*args, **kw), iters=5)
             plain_ms = cuda_ms(lambda: ds.decoder_step_chunk_plain(
                 *args, **kw), iters=2, warmup=1)
@@ -707,13 +803,21 @@ def step_phase(model, cfg, dev, card):
                 att_size=4)
             bound_ms, bound_by = bound(nbytes, flops, "float32" if dtype ==
                                        torch.float32 else "bfloat16")
+            # what each step must touch whatever the kernel keeps: both
+            # LSTMs' weights, memory and processed memory, once a step
+            size = lambda x: x.numel() * x.element_size()
+            step_b = (size(fp.w1) + size(fp.w2) + size(inputs[0])
+                      + size(inputs[1]))
+            floor_ms = cs * step_b / HBM_BYTES_PER_S * 1e3
             timed[dtype] = dict(ms=ms, plain_ms=plain_ms,
                                 batched_entry_at_b1_ms=batched_ms,
-                                bound_ms=bound_ms, bound_by=bound_by)
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                floor_ms=floor_ms)
             print(f"decoder step [{card}] {label} B=1: kernel {ms:.4f} ms "
                   f"({ms / cs * 1e3:.2f} us a step), plain {plain_ms:.4f} ms,"
                   f" the batched chunk's entry at B=1 {batched_ms:.4f} ms, "
-                  f"bound {bound_ms:.5f} ms ({bound_by})")
+                  f"bound {bound_ms:.5f} ms ({bound_by}); per-step floor "
+                  f"{step_b / 1e6:.1f} MB, {floor_ms:.4f} ms at the HBM rate")
     for dtype in (torch.bfloat16, torch.float32):
         print(f"decoder step [{card}] "
               f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}, worst over "
@@ -730,8 +834,9 @@ def step_phase(model, cfg, dev, card):
             "tolerance": {"share_of_field_max": STEP_REL[torch.bfloat16]},
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
+            "floor_ms": r["floor_ms"], "library_ms": None,
             "batched_entry_at_b1_ms": r["batched_entry_at_b1_ms"],
+            "launches_per_chunk": per_chunk,
             "fp32": timed[torch.float32]}
 
 
@@ -1392,7 +1497,9 @@ def scan_phase(model, cfg, dev, card):
 
 def encoder_train_phase(model, dev, card, enc):
     """Row 4 at B=128, T=128, bf16 against its plain version, timed beside
-    cuDNN's bidirectional LSTM backward; row 3 re-timed at B=128."""
+    cuDNN's bidirectional LSTM backward; row 3 at B=128 field by field
+    (ENC_FWD_REL), re-timed beside cuDNN at T 128, 48 and 32, and at the
+    quality gate's B=32 at T 48 and 32."""
     B, T = TRAIN_SHAPE["B"], TRAIN_SHAPE["T_in"]
     lstm = model.encoder.lstm
     N, H = lstm.input_size, lstm.hidden_size
@@ -1432,10 +1539,7 @@ def encoder_train_phase(model, dev, card, enc):
     ms = cuda_ms(lambda: el.bilstm_backward(*args), iters=5)
     plain_ms = cuda_ms(lambda: el.bilstm_backward_plain(*args), iters=1,
                        warmup=0)
-    ref = torch.nn.LSTM(N, H, batch_first=True, bidirectional=True).to(dev)
-    ref.load_state_dict(lstm.state_dict())
-    ref = ref.to(bf16)
-    ref.flatten_parameters()
+    ref = _cudnn_bilstm(lstm, dev)
     with torch.no_grad():
         lib_fwd = cuda_ms(lambda: ref(xs), iters=10)
     xg = xs.detach().requires_grad_(True)
@@ -1451,9 +1555,9 @@ def encoder_train_phase(model, dev, card, enc):
               + 2 * T * B * (4 * H * wsz + N * 4))
     flops = 2 * T * 2 * B * 4 * H * K
     bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
-    f_bytes = (2 * B * T * N * wsz + 2 * (K * 4 * H * wsz + 4 * H * 4)
-               + 2 * T * B * (4 * H * wsz + H * wsz + H * 4))
+    f_bytes, _, f_step = _encoder_work(B, T, N, H, wsz)
     f_bound, f_by = bound(f_bytes, flops, "bfloat16")
+    f_floor = T * f_step / HBM_BYTES_PER_S * 1e3
     print(f"encoder backward [{card}] B={B} T={T} N={N} H={H} bf16: max |err|"
           f" by field as a share of its largest |value| (limit): " + ", ".join(
               f"{k} {r:.2e} ({ENC_BWD_REL[k]})" for k, (_, r) in errs.items())
@@ -1465,12 +1569,15 @@ def encoder_train_phase(model, dev, card, enc):
               f"{k} {r:.2e} ({ENC_FWD_REL[k]})"
               for k, (_, r) in fwd_errs.items())
           + f"; kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, cuDNN "
-          f"forward {lib_fwd:.4f} ms, bound {f_bound:.5f} ms ({f_by})")
+          f"forward {lib_fwd:.4f} ms, bound {f_bound:.5f} ms ({f_by}), "
+          f"per-step floor {f_floor:.4f} ms")
+    shapes = encoder_shapes(packed, lstm, ref, dev, card,
+                            [(128, 48), (128, 32), (32, 48), (32, 32)], 23)
     enc["at_training_shape"] = {
         "B": B, "T": T, "max_abs_err": max(e for e, _ in fwd_errs.values()),
         "tolerance": {"share_of_field_max": ENC_FWD_REL}, "ms": fwd_ms,
         "plain_ms": fwd_plain, "bound_ms": f_bound, "bound_by": f_by,
-        "library_ms": lib_fwd}
+        "floor_ms": f_floor, "library_ms": lib_fwd, "shapes": shapes}
     return {"name": "encoder_lstm_bwd", "route": "cuda",
             "source": "tacotron2_tpu_torch/kernels/csrc/encoder_lstm.cu",
             "replaces": "tacotron2_tpu/kernels/encoder_lstm.py:156",
@@ -1610,6 +1717,79 @@ def train_phase(cfg, dev, card, seed):
     print(f"training profile [{card}] one step: " + profile_kernels(
         lambda: tstate.train_step(state, batch, cfg, gen), top=16))
     return counts
+
+
+# The bf16 training step with row 3 against the same step with row 3's plain
+# version swapped in (same state, batch and dropout draws; the rest of the
+# step unchanged): the loss's gap as a share of the loss, and each encoder
+# gradient's largest |gap| as a share of its largest |value| (_grad_gaps).
+# The two share every cast point and differ only in the order of row 3's
+# fp32 sums, which now and then flips the bf16 rounding of a gate or an h.
+# Limits: the fp32 step check's (STEP_REL_FP32) scaled by 2^8 for bf16, the
+# share by which one rounding step moves a bf16 value.
+SWAP_REL_BF16 = tuple(x * 2 ** 8 for x in STEP_REL_FP32)
+ENCODER_PARAMS = ("embedding.", "encoder.")
+
+
+def encoder_swap_phase(cfg, dev, card, seed):
+    """``loss_and_grads`` at bench.py's shape (bf16) three times on one
+    state and batch, each with its own generator of the same seed: twice
+    with row 3's kernel (their gap is the rest of the step's run-to-run
+    noise), once with ``bilstm_forward_plain`` in its place. The kernel's
+    step against the plain one within SWAP_REL_BF16."""
+    B, T_in, T_out = (TRAIN_SHAPE[k] for k in ("B", "T_in", "T_out"))
+    state = tstate.create_train_state(
+        cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    batch = tstate.make_batch(cfg, B, T_in, T_out, seed=seed, device=dev)
+
+    def step():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        loss, grads, _, _ = tstate.loss_and_grads(state, batch, cfg, gen)
+        torch.cuda.synchronize()
+        return float(loss.total), {k: g.cpu() for k, g in grads.items()
+                                   if k.startswith(ENCODER_PARAMS)}
+
+    launches = el.bilstm_forward.launches
+    l_kernel, g_kernel = step()
+    l_again, g_again = step()
+    if el.bilstm_forward.launches != launches + 2:
+        fail("the training step did not launch row 3's kernel")
+    kernel, plain0 = el.bilstm_forward, el.bilstm_forward_plain.calls
+    el.bilstm_forward = el.bilstm_forward_plain
+    try:
+        l_plain, g_plain = step()
+    finally:
+        el.bilstm_forward = kernel
+    if el.bilstm_forward_plain.calls != plain0 + 1:
+        fail("the swapped step did not run row 3's plain version")
+    loss_gap = abs(l_kernel - l_plain) / abs(l_plain)
+    gaps = _grad_gaps(g_kernel, g_plain)
+    noise = _grad_gaps(g_again, g_kernel)
+    name, worst_gap = next(iter(gaps.items()))
+    nname, worst_noise = next(iter(noise.items()))
+    rss = float((g_kernel[name] - g_plain[name]).norm()
+                / g_plain[name].norm())
+    print(f"row 3 in the training step [{card}] bf16 B={B} T_in={T_in} "
+          f"T_out={T_out}: loss {l_kernel:.6f} with the kernel, {l_plain:.6f}"
+          f" with the plain version (share {loss_gap:.2e}, limit "
+          f"{SWAP_REL_BF16[0]:.2e}); {len(gaps)} encoder gradients, worst "
+          f"{name} {worst_gap:.2e} of its largest value (limit "
+          f"{SWAP_REL_BF16[1]:.2e}; its root-sum-square share {rss:.2e}, "
+          f"not held); the kernel's step run twice: loss share "
+          f"{abs(l_again - l_kernel) / abs(l_kernel):.2e}, worst gradient "
+          f"{nname} {worst_noise:.2e}")
+    if loss_gap > SWAP_REL_BF16[0]:
+        fail(f"training step: loss {l_kernel} with row 3, {l_plain} with its "
+             f"plain version")
+    if worst_gap > SWAP_REL_BF16[1]:
+        fail(f"training step: gradient of {name} with row 3 off by "
+             f"{worst_gap:.3e} of its largest value from the plain version's")
+    return {"loss_share": loss_gap, "worst_gradient": name,
+            "worst_gradient_share": worst_gap, "its_rss_share": rss,
+            "limits": list(SWAP_REL_BF16),
+            "kernel_twice": {"loss_share": abs(l_again - l_kernel)
+                             / abs(l_kernel), "worst_gradient_share":
+                             worst_noise}}
 
 
 def _grad_gaps(got, want):
@@ -1809,6 +1989,8 @@ def main() -> int:
     enc_bwd = encoder_train_phase(model, dev, card, enc)
     del model
     train_counts = train_phase(cfg, dev, card, seed)
+    enc["training_step_with_plain_version"] = encoder_swap_phase(
+        cfg, dev, card, seed)
     step_check_phase(cfg, dev, card, seed)
 
     enc["launches"] = counts["encoder_lstm_fwd"]

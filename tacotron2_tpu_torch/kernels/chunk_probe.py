@@ -1,16 +1,19 @@
-"""Where a step of the persistent batched decoder chunk goes, on the card.
+"""Where a step of the persistent decoder chunk goes, on the card.
 
-    python -m tacotron2_tpu_torch.kernels.chunk_probe [B]
+    python -m tacotron2_tpu_torch.kernels.chunk_probe [B | step]
 
-Builds two variants of ``csrc/decoder_batch.cu`` beside the normal build
-(in ``build/kernels/probe/``): one that records the GPU clock
-(``%globaltimer``) in block 0 after each grid barrier, and one whose phases
-do no work, so that a chunk is its barriers alone. Then, at the default
-config's full width (seeded random weights, bf16, T_in=128, one 64-step
-chunk at B rows, 8 by default), it prints the chunk's time as built and in
-both variants, and the median time of each phase over the steps (from the
-barrier before it to the one after it, so each includes one barrier).
-Needs one CUDA device and nvcc; nothing here runs on import.
+Builds two variants of ``csrc/decoder_batch.cu`` (the batched chunk), or
+with ``step`` of ``csrc/decoder_step.cu`` (the single-utterance chunk),
+and of the persistent kernel both include (``csrc/persistent_chunk.cuh``)
+beside the normal build (in ``build/kernels/probe/``): one that records
+the GPU clock (``%globaltimer``) in block 0 after each grid barrier, and
+one whose phases do no work, so that a chunk is its barriers alone. Then,
+at the default config's full width (seeded random weights, bf16, T_in=128,
+one 64-step chunk at B rows, 8 by default; one row for ``step``), it prints
+the chunk's time as built and in both variants, and the median time of
+each phase over the steps (from the barrier before it to the one after it,
+so each includes one barrier). Needs one CUDA device and nvcc; nothing
+here runs on import.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from tacotron2_tpu_torch.kernels import _build
 from tacotron2_tpu_torch.kernels import decoder_batch as db
+from tacotron2_tpu_torch.kernels import decoder_step as ds
 
 PHASES = ("prenet", "attention LSTM", "query", "energies",
           "softmax and context", "decoder LSTM", "projection")
@@ -39,31 +43,40 @@ _READ = ('int pc_trace_read(void* h) { return (int)cudaMemcpyFromSymbol('
          'h, pc_trace, sizeof(pc_trace)); }\n')
 
 
-def _variants():
-    """(traced source, barrier-only source) of csrc/decoder_batch.cu."""
-    src = (_build.CSRC / "decoder_batch.cu").read_text()
-    marks = {'#include "mma.cuh"\n': '#include "mma.cuh"\n' + _TRACE,
-             "grid_sync(P.bar, target);": "grid_sync(P.bar, target); PC_MARK",
-             "    const int par = st & 1;\n":
-                 "    const int par = st & 1;\n    int ph = 0;\n    PC_MARK\n",
-             'extern "C" {\n': 'extern "C" {\n' + _READ}
+def _patched(name, marks):
+    src = (_build.CSRC / name).read_text()
     for old, new in marks.items():
         if old not in src:
-            raise RuntimeError(f"decoder_batch.cu no longer has {old!r}")
+            raise RuntimeError(f"{name} no longer has {old!r}")
         src = src.replace(old, new)
-    idle = (src.replace("for (int it = bid; it < B * n_",
-                        "for (int it = bid; it < 0 * n_")
+    return src
+
+
+def _variants(source="decoder_batch"):
+    """{variant: {file name: source}}: the traced and the barrier-only
+    copies of csrc/<source>.cu and csrc/persistent_chunk.cuh."""
+    name = f"{source}.cu"
+    cu = _patched(name, {'extern "C" {\n': 'extern "C" {\n' + _READ})
+    head = _patched("persistent_chunk.cuh", {
+        '#include "mma.cuh"\n': '#include "mma.cuh"\n' + _TRACE,
+        "grid_sync(P.bar, target);": "grid_sync(P.bar, target); PC_MARK",
+        "    const int par = st & 1;\n":
+            "    const int par = st & 1;\n    int ph = 0;\n    PC_MARK\n"})
+    idle = (head.replace("for (int it = bid; it < B * n_",
+                         "for (int it = bid; it < 0 * n_")
             .replace("    pc_lstm<NB>(", "    if (c.t0 < 0) pc_lstm<NB>("))
-    return src, idle
+    return {"traced": {name: cu, "persistent_chunk.cuh": head},
+            "idle": {name: cu, "persistent_chunk.cuh": idle}}
 
 
-def _build_variants():
-    out = _build.BUILD_DIR / "probe"
-    out.mkdir(parents=True, exist_ok=True)
+def _build_variants(source, signatures):
     started = []
-    for name, text in zip(("traced", "idle"), _variants()):
-        cu, lib = out / f"{name}.cu", out / f"lib{name}.so"
-        cu.write_text(text)
+    for name, files in _variants(source).items():
+        out = _build.BUILD_DIR / "probe" / name
+        out.mkdir(parents=True, exist_ok=True)
+        for fname, text in files.items():   # the copy beside the .cu wins
+            (out / fname).write_text(text)
+        cu, lib = out / f"{source}.cu", out / f"lib{source}-{name}.so"
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                "-o", str(lib), str(cu)]
         started.append((name, lib, subprocess.Popen(
@@ -75,7 +88,7 @@ def _build_variants():
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on the {name} variant:\n{log}")
         cdll = ctypes.CDLL(str(lib))
-        for fn, argtypes in db._SIGNATURES.items():
+        for fn, argtypes in signatures.items():
             getattr(cdll, fn).argtypes = argtypes
             getattr(cdll, fn).restype = ctypes.c_int
         cdll.error_string.argtypes = [ctypes.c_int]
@@ -84,18 +97,26 @@ def _build_variants():
     return libs
 
 
-def _chunk_args(B: int, dev: torch.device):
+def _chunk_args(B: int, dev: torch.device, step: bool):
+    """The chunk's arguments: the batched chunk's at B rows, or with
+    ``step`` the single-utterance chunk's (B=1, its pack and its fp32
+    attention inputs)."""
     from tacotron2_tpu_torch.config import create_config
     from tacotron2_tpu_torch.models import tacotron2 as tm
     cfg = create_config()
     model = tm.Tacotron2(cfg, torch.Generator().manual_seed(1234)).to(dev)
-    fp = db.pack_batch_decoder_params(model, torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(3)
     T = 128
     rand = lambda n: torch.randn(B, T, n, generator=g, device=dev) * 0.3
-    mem, proc, emask = db.attention_inputs(
-        rand(cfg.encoder_embedding_dim), rand(cfg.attention_dim), None,
-        torch.bfloat16)
+    if step:
+        fp = ds.pack_decoder_params(model, torch.bfloat16)
+        mem, proc, emask = ds.attention_inputs(
+            rand(cfg.encoder_embedding_dim), rand(cfg.attention_dim), None)
+    else:
+        fp = db.pack_batch_decoder_params(model, torch.bfloat16)
+        mem, proc, emask = db.attention_inputs(
+            rand(cfg.encoder_embedding_dim), rand(cfg.attention_dim), None,
+            torch.bfloat16)
     a, d, e = (cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
                cfg.encoder_embedding_dim)
     z = lambda *s: torch.zeros(*s, device=dev)
@@ -126,17 +147,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chunk_probe: no CUDA device", file=sys.stderr)
         return 1
-    B = int(argv[0]) if argv else 8
+    step = bool(argv) and argv[0] == "step"
+    B = 1 if step else int(argv[0]) if argv else 8
+    mod, source = (ds, "decoder_step") if step else (db, "decoder_batch")
     dev = torch.device("cuda")
-    args, kw = _chunk_args(B, dev)
-    run = lambda: db.decoder_chunk(*args, **kw)
+    args, kw = _chunk_args(B, dev, step)
+    chunk = ds.decoder_step_chunk if step else db.decoder_chunk
+    run = lambda: chunk(*args, **kw)
     built = _ms(run)
-    libs = _build_variants()
-    saved = _build.load("decoder_batch", db._SIGNATURES)
+    libs = _build_variants(source, mod._SIGNATURES)
+    saved = _build.load(source, mod._SIGNATURES)
     try:
-        _build._LIBS["decoder_batch"] = libs["idle"]
+        _build._LIBS[source] = libs["idle"]
         idle = _ms(run)
-        _build._LIBS["decoder_batch"] = libs["traced"]
+        _build._LIBS[source] = libs["traced"]
         traced = _ms(run)
         run()
         torch.cuda.synchronize()
@@ -144,7 +168,7 @@ def main(argv=None) -> int:
         _build.check(libs["traced"], libs["traced"].pc_trace_read(buf),
                      "pc_trace_read")
     finally:
-        _build._LIBS["decoder_batch"] = saved
+        _build._LIBS[source] = saved
     cs = kw["chunk_steps"]
     marks = torch.tensor(list(buf[:cs * 8]), dtype=torch.float64)
     marks = marks.reshape(cs, 8)
@@ -154,7 +178,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"chunk probe [{card}] bf16 B={B} T_in=128 {cs} steps: chunk "
+    what = "single-utterance chunk (row 6)" if step else "batched chunk"
+    print(f"chunk probe [{card}] {what} bf16 B={B} T_in=128 {cs} steps: "
+          f"chunk "
           f"{built:.4f} ms as built, {traced:.4f} ms traced, {idle:.4f} ms "
           f"with its phases doing no work ({idle / (7 * cs) * 1e3:.2f} us a "
           f"barrier); a step {step_us:.2f} us; by phase, its barrier "

@@ -14,9 +14,25 @@
 // What bounds it on the H100: one row needs one multiply-add per weight
 // element, so a step is the two LSTM weight matrices (1792 x 4096 and
 // 2560 x 4096, 35.7 MB in bf16) read once: bytes, not operations. No SM
-// holds them (227 KB of shared memory), the 50 MB L2 does, so every step
-// streams them from L2. The batched chunk's product is built around 8 rows
-// per weight read and stages 8 rows of input; here each LSTM is a
+// holds them (227 KB of shared memory), the 50 MB L2 does. But at B = 1 a
+// step barely computes: what costs is latency, seven dependent phases a
+// step, each a few round trips to L2. Launched as seven kernels a step
+// from a host loop they cost ~47-53 us a step on an NVIDIA H100 80GB HBM3
+// at 700 W, the launches' own gaps included.
+//
+// Design. The bf16 chunk (the serving path) runs as ONE cooperative
+// persistent launch: the batched chunk's persistent kernel
+// (persistent_chunk.cuh) at B = 1 with this TPU kernel's cast points
+// (AT = float: fp32 query, K2, location term, processed memory and
+// memory). One block per SM; a grid barrier stands where a launch boundary
+// stood; the decoder LSTM's weights stay in shared memory for the chunk,
+// the attention LSTM's stream from L2 in mma.sync fragment order
+// (kernels/lstm_layout.py to_mma_tiles); both LSTM products run on the
+// tensor cores in swap-AB form (the row is one column of an n8 tile).
+//
+// The fp32 chunk, and bf16 shapes the persistent plan does not take, keep
+// the first design, one launch per phase from a host loop inside the C
+// entry point. There each LSTM is a
 // matrix-vector product of its own (lstm_row_kernel): a block owns
 // DEC_UNITS hidden units (the same block-major slabs,
 // kernels/lstm_layout.py), a thread reads 8 weights (16 bytes in bf16) per
@@ -24,15 +40,14 @@
 // shuffles and one pass through shared memory, and the cell update stays in
 // the block. The small products (prenet, query, projection) and the
 // softmax + context are the batched chunk's kernels launched with one row
-// (decoder_common.cuh, attention.cuh). One launch per phase from a host
-// loop inside the C entry point, as there; a persistent kernel or a CUDA
-// graph over the chunk is the later, faster design.
+// (decoder_common.cuh, attention.cuh).
 #include <math.h>
 #include <stdint.h>
 
 #include "attention.cuh"
 #include "decoder_common.cuh"
 #include "lstm_cell.cuh"
+#include "persistent_chunk.cuh"
 
 #define ROW_THREADS 512  // lstm_row_kernel block: 4 gates x 128 slices of K
 #define ROW_LOADS 4      // 8-weight loads each thread keeps in flight
@@ -271,22 +286,49 @@ extern "C" {
 // Runs cs decoder steps of one row. h1 / h2 / fin point at (2, A) / (2, D)
 // / (2,) buffers whose slot 0 holds the incoming state; the final state
 // lands in slot cs % 2. Every other carry is updated in place. k2, mem,
-// proc and emask are fp32. Returns cudaError_t.
+// proc and emask are fp32. w1f / w2f: the LSTM weights in mma fragment
+// order (kernels/lstm_layout.py to_mma_tiles), or null; with them, a bf16
+// chunk at the shapes persistent_plan takes runs as one cooperative launch,
+// using scratch (decoder_step_scratch bytes), else the per-step launches
+// of run<W>. Returns cudaError_t.
 int decoder_step_chunk(int bf16, const void* pre1, const void* pre2,
                        const void* w1, const void* b1, const void* w2,
                        const void* b2, const void* wq, const void* k2,
                        const void* v, const void* wpe, const void* bpe,
+                       const void* w1f, const void* w2f,
                        const void* mem, const void* proc, const void* emask,
                        const void* kp1, const void* kp2, void* h1, void* c1,
                        void* h2, void* c2, void* w, void* wc, void* ctx,
                        void* prev, void* fin, void* len, void* a2, void* q,
-                       void* e, void* mel, void* gate, void* align, int T,
-                       int n, int p, int E, int A, int D, int datt, int ks,
-                       int cs, int t0, float gate_logit, void* stream) {
+                       void* e, void* mel, void* gate, void* align,
+                       void* scratch, int T, int n, int p, int E, int A,
+                       int D, int datt, int ks, int cs, int t0,
+                       float gate_logit, void* stream) {
   size_t need;
   int have;
   if (step_limits(T, n, p, E, A, D, datt, ks, &need, &have) != 0)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16 && w1f && w2f) {
+    Chunk pc{pre1, pre2, w1, w2, wq, k2, v, wpe,
+             (const float*)b1, (const float*)b2, (const float*)bpe,
+             mem, proc, (const float*)emask, (const float*)kp1,
+             (const float*)kp2,
+             (float*)h1, (float*)c1, (float*)h2, (float*)c2, (float*)w,
+             (float*)wc, (float*)ctx, (float*)prev, (int*)fin, (int*)len,
+             (float*)a2, (float*)q, (float*)e,
+             (float*)mel, (float*)gate, (float*)align,
+             1, T, n, p, E, A, D, datt, ks, cs, t0, gate_logit};
+    Persist P{};
+    size_t smem = 0;
+    const int plan = persistent_plan<float>(pc, &P, &smem);
+    if (plan < 0) return (int)cudaErrorInvalidDevice;
+    if (plan == 0) {
+      P.w1f = (const uint4*)w1f;
+      P.w2f = (const uint4*)w2f;
+      return (int)run_persistent<float>(P, smem, scratch, s);
+    }
+  }
   StepChunk c{pre1, pre2, w1, w2, wq, v, wpe,
               (const float*)k2, (const float*)b1, (const float*)b2,
               (const float*)bpe,
@@ -297,8 +339,13 @@ int decoder_step_chunk(int bf16, const void* pre1, const void* pre2,
               (float*)a2, (float*)q, (float*)e,
               (float*)mel, (float*)gate, (float*)align,
               T, n, p, E, A, D, datt, ks, cs, t0, gate_logit};
-  cudaStream_t s = (cudaStream_t)stream;
   return (int)(bf16 ? run<__nv_bfloat16>(c, s) : run<float>(c, s));
+}
+
+// Bytes of scratch decoder_step_chunk takes at these widths. Returns 0.
+int decoder_step_scratch(int p, int E, int A, int D, size_t* bytes) {
+  *bytes = persistent_scratch(1, p + E + A, A + E + D);
+  return 0;
 }
 
 // step_limits for Python (kernels/decoder_step.py:kernel_limits).

@@ -10,28 +10,52 @@
 // back time-major: gates (T,B,4H) and h (T,B,H) in the operand type, c
 // (T,B,H) in fp32.
 //
-// What bounds it on the H100: each step is a (B x 768) @ (768 x 1024)
-// product per direction: each 2-byte bf16 weight feeds only B = 8 FMAs,
-// 8 FLOP per byte, far below the ~295 FLOP/byte at which the tensor cores
-// become the limit. The step is bound by reading the weights (2 x 1.5 MB,
-// read again every step; they stay resident in the 50 MB L2) and, at this
-// size, by the launch of each step.
+// What bounds it on the H100. Each step is a (B x 768) @ (768 x 1024)
+// product per direction at the default widths, and step t cannot start
+// before step t-1's h: the scan is a chain of T dependent steps. At B = 128
+// the work is ~0.4 GFLOP a step (0.052 ms at the bf16 tensor-core peak for
+// T = 128): operations. At serving sizes (B <= 8) a step barely computes
+// and the chain's latency is all: ~65.8 us a step when each step was a
+// launch that re-read the weights (2 x 1.5 MB) from L2 on CUDA cores.
 //
-// Design: one launch per time step covering both directions (grid.y). A
-// block owns ENC_UNITS hidden units of one direction and all four of their
-// gate columns over K = N + H, so the cell update stays in the block; the
-// weights come block-major (kernels/lstm_layout.py), so a block's slab is
-// contiguous and its loads are whole 32-byte sectors; each weight element
-// read feeds T2_BT = 8 batch rows (grid.z tiles larger batches). h_{t-1} is read back from the h stack (already rounded to the
-// operand type, the TPU kernel's cast point) and c_{t-1} from the fp32 c
-// stack, so no state crosses a launch except through the outputs. Each
-// thread keeps T2_LOADS weight loads in flight, so a step is not one chain
-// of L2 latencies. 64 unit slices x 2 directions = 128 blocks at H = 256,
-// one wave on 132 SMs. The host
-// loop over T runs inside the C entry point, so one call from Python
-// launches all T steps. Tensor cores (wgmma) and a persistent kernel that
-// keeps the weights in shared memory across steps are later work.
+// Design, bf16 at the shapes encoder_cluster_ok takes (H 128 or 256, N in
+// 16s; every B and T): ONE launch for the whole scan, on thread-block
+// clusters. A cluster of EC_CL = 16 blocks owns one direction and one group
+// of R = 16, 32 or 48 rows (cluster_mt: B = 128 takes 6 clusters, one
+// wave); block r of the cluster owns hidden units r H/16 .. (r+1) H/16 - 1
+// and keeps their four gates' columns of [wi ; wh] (96 KB at H = 256,
+// N = 512) in shared memory for all T steps, so the weights are read once
+// a launch, not once a step. Each warp tile (16 rows x 8 units' 32 gate
+// columns) has two warps:
+//   x warp  the x part of the NEXT step, acc = x_{t+1} @ wi on bf16
+//           mma.sync m16n8k16, from x_{t+1}'s rows staged in shared memory
+//           by cp.async as soon as the x part before was done; the sums
+//           left in shared memory;
+//   h warp  the recurrence: acc = that x part; wait on the cluster barrier
+//           (every block's h_{t-1} has landed in this block's shared
+//           memory); acc += h_{t-1} @ wh into the same fp32 accumulators;
+//           the cell in registers (the column tiles are gate-interleaved,
+//           n8 tile j of a warp gate j of 8 units, as train_scan.cu's
+//           scan_cell_kernel, so each thread holds all four gates of its
+//           units and keeps their c in registers for the whole scan); then
+//           the new h, rounded to bf16 (the TPU kernel's cast point), into
+//           every block of the cluster through distributed shared memory
+//           (st.shared::cluster, 16 bytes a store, double-buffered by step
+//           parity), and barrier.cluster.arrive.release.
+// So a step's critical path is the barrier, the h part (K = H), the cell
+// and the exchange; the x part (K = N, two thirds of the work) and the
+// loads of x run beside it. The cluster barrier stands where the launch
+// boundary stood. One fp32 accumulator per gate over all of K (the x part
+// first, the h part into the same sums); no partial sum is rounded and
+// there are no atomics, so two runs give the same bits. Clusters never
+// wait for each other, so a grid larger than the card holds at once only
+// runs in more waves. fp32, and the shapes the cluster kernel does not
+// take, keep the first design (encoder_step, below): one launch per step
+// from a host loop inside the C entry point, CUDA cores, weights from L2.
+#include <stdint.h>
+
 #include "lstm_cell.cuh"
+#include "mma.cuh"
 
 #define ENC_UNITS 4      // hidden units per block
 #define ENC_THREADS 512  // 16 gate columns x 32 slices of K
@@ -124,6 +148,344 @@ static cudaError_t run(const void* xf, const void* xr, const void* wf,
   return cudaSuccess;
 }
 
+// --------------------------------------------- the cluster forward, bf16
+
+#define EC_CL 16   // blocks per cluster: one direction's units, 16 ways
+#define EC_PAD 8   // bf16 padding of each shared row (16 bytes: the eight
+                   //   rows of an ldmatrix fall in distinct banks)
+
+typedef __nv_bfloat16 bf16;
+
+struct EncFwd {
+  const bf16 *xf, *xr;  // (B, T, N)
+  const bf16 *wf, *wb;  // block-major [wi ; wh], (H / 4, N + H, 16)
+  const float *bf, *bb; // (4H,)
+  bf16 *gf, *gb;        // (T, B, 4H)
+  bf16 *hf, *hb;        // (T, B, H)
+  float *cf, *cb;       // (T, B, H)
+  int B, T, N, H, NG;   // NG row groups of 16 MT rows per direction
+};
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_index() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves: arrive (release: this thread's writes,
+// remote ones included, are visible to every thread of the cluster that
+// has waited) and wait (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// 16 bytes into block `rank` of the cluster at the shared address its own
+// copy of `local` has.
+__device__ __forceinline__ void st_cluster16(const void* local,
+                                             unsigned rank, uint4 v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_addr(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// acc[j] += A (16 rows of a, row stride lda) @ W^T, W^T the warp's 32 rows
+// of w (row stride lw: n8 tile j = rows 8j .. 8j+7), over nk k16 steps;
+// both operands in shared memory, [row][k], loaded by ldmatrix (matrix mi
+// = lane / 8 of an x4 load: A rows 8 (mi % 2), k half mi / 2; W rows
+// 8 (mi / 2), k half mi % 2).
+__device__ __forceinline__ void ec_product(float (&acc)[4][4], const bf16* a,
+                                           int lda, const bf16* w, int lw,
+                                           int nk, int lane) {
+  const int r8 = lane & 7, mi = lane >> 3;
+  const bf16* ap = a + (size_t)(r8 + (mi & 1) * 8) * lda + (mi >> 1) * 8;
+  const bf16* bp = w + (size_t)(r8 + (mi >> 1) * 8) * lw + (mi & 1) * 8;
+#pragma unroll 4
+  for (int s = 0; s < nk; ++s) {
+    uint32_t fa[4], f0[4], f1[4];
+    ldmatrix_x4(fa, ap + s * 16);
+    ldmatrix_x4(f0, bp + s * 16);
+    ldmatrix_x4(f1, bp + (size_t)16 * lw + s * 16);
+    mma_bf16(acc[0], fa, f0);
+    mma_bf16(acc[1], fa, f0 + 2);
+    mma_bf16(acc[2], fa, f1);
+    mma_bf16(acc[3], fa, f1 + 2);
+  }
+}
+
+// Named barriers over nthreads threads, which meet here each at its own
+// place in the code: id 1 the whole block (h and x warps), id 2 the x
+// warps alone.
+__device__ __forceinline__ void ec_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// Launched in clusters of EC_CL blocks (x), 2 NG clusters: cluster 2 rg + d
+// scans direction d for rows 16 MT rg .. 16 MT (rg + 1) - 1. Block r owns
+// units u0 = r H / EC_CL .. + H / EC_CL in NUG = H / (8 EC_CL) groups of 8.
+// Its NT = MT NUG tiles (mt, ug), rows 16 mt .. 16 mt + 15 of the group x
+// unit group ug's 32 gate columns, have two warps each: h warp `tile`
+// runs the recurrence, x warp NT + `tile` computes the x part one step
+// ahead. Shared memory: ws [32 NUG][N + H + EC_PAD] bf16, the block's rows
+// of [wi ; wh]^T, row 32 ug + 8 j + u gate j of unit u0 + 8 ug + u; hs
+// [2][16 MT][H + EC_PAD] bf16, h by step parity, all H units; xp [2][NT][16]
+// [32] fp32, the x parts by step parity, accumulator i of lane l at
+// [i][l]; xs [16 MT][N + EC_PAD] bf16, the x rows of the x warps' next
+// step, staged by cp.async as soon as the last x part is done.
+template <int MT>
+__global__ void __launch_bounds__(128 * MT, 1)
+encoder_cluster_kernel(EncFwd a) {
+  extern __shared__ __align__(16) unsigned char ec_raw[];
+  const int B = a.B, T = a.T, N = a.N, H = a.H, K = N + H;
+  const int UB = H / EC_CL, NUG = UB / 8, R = 16 * MT, NT = MT * NUG;
+  const int LW = K + EC_PAD, LH = H + EC_PAD;
+  bf16* ws = reinterpret_cast<bf16*>(ec_raw);
+  bf16* hs = ws + (size_t)32 * NUG * LW;
+  float* xp = reinterpret_cast<float*>(hs + (size_t)2 * R * LH);
+  const unsigned rank = cluster_rank();
+  const int cl = (int)cluster_index();
+  const int dir = cl & 1, row0 = (cl >> 1) * R;
+  const bf16* x = dir ? a.xr : a.xf;
+  const bf16* wg = dir ? a.wb : a.wf;
+  const float* bias = dir ? a.bb : a.bf;
+  bf16* gout = dir ? a.gb : a.gf;
+  bf16* hout = dir ? a.hb : a.hf;
+  float* c_out = dir ? a.cb : a.cf;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool xw = warp >= NT;                 // an x warp
+  const int tile = xw ? warp - NT : warp;
+  const int mt = tile / NUG, ug = tile % NUG;
+  const int u0 = (int)rank * UB;
+  const int unit = u0 + ug * 8 + 2 * t4;   // this thread's units: unit, +1
+
+  // the block's weight rows, from the block-major layout (4-unit blocks,
+  // column 4 q + u = gate q of unit u), 16 bytes a load
+  for (int i = tid; i < UB / 4 * K * 2; i += nt) {
+    const int half = i & 1, k = (i >> 1) % K, bl = (i >> 1) / K;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        wg + ((size_t)(u0 / 4 + bl) * K + k) * 16 + half * 8);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = half * 8 + q, u = bl * 4 + (col & 3);
+      ws[(size_t)((u >> 3) * 32 + (col >> 2) * 8 + (u & 7)) * LW + k] = e[q];
+    }
+  }
+  float bq[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) bq[j][q] = bias[j * H + unit + q];
+  const bf16* wrow = ws + (size_t)ug * 32 * LW;
+  const int LX = N + EC_PAD, nx = 32 * NT;    // the x warps' threads
+  bf16* xs = reinterpret_cast<bf16*>(xp + (size_t)2 * NT * 16 * 32);
+  // x_s of the group's rows into xs (zeros past B), by the x warps
+  auto load_x = [&](int s) {
+    const int per_row = N / 8;
+    for (int i = tid - nx; i < R * per_row; i += nx) {
+      const int r = i / per_row, c8 = i % per_row, row = row0 + r;
+      const bool in = row < B;
+      cp_async16(xs + (size_t)r * LX + c8 * 8,
+                 x + ((size_t)(in ? row : 0) * T + s) * N + c8 * 8,
+                 in ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  // the x part of step s (x_s in xs) into xp[s & 1]; then x_{s+1} into xs
+  auto x_part = [&](int s) {
+    cp_async_wait<0>();
+    ec_sync(2, nx);                  // x_s is in xs for every x warp
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    ec_product(acc, xs + (size_t)mt * 16 * LX, LX, wrow, LW, N / 16, lane);
+    float* dst = xp + (size_t)((s & 1) * NT + tile) * 16 * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[(j * 4 + e) * 32] = acc[j][e];
+    ec_sync(2, nx);                  // every x warp is done with x_s
+    if (s + 1 < T) load_x(s + 1);
+  };
+  if (xw) {
+    load_x(0);
+    x_part(0);
+  }
+  __syncthreads();
+  cluster_arrive();   // every block of the cluster has started before any
+  cluster_wait();     // writes into another's shared memory
+
+  float cst[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // c of (row, unit) pairs e
+  for (int t = 0; t < T; ++t) {
+    if (xw) {
+      if (t > 0) cluster_wait();
+      cluster_arrive();              // the x warps carry no h
+      if (t + 1 < T) x_part(t + 1);
+      ec_sync(1, nt);                // x part t+1 in xp; x part t read
+      continue;
+    }
+    float acc[4][4];
+    const float* src = xp + (size_t)((t & 1) * NT + tile) * 16 * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = src[(j * 4 + e) * 32];
+    if (t > 0) {
+      cluster_wait();                // h_{t-1} of every block has landed
+      ec_product(acc, hs + ((size_t)((t - 1) & 1) * R + mt * 16) * LH, LH,
+                 wrow + N, LW, H / 16, lane);
+    }
+    // the cell: accumulator e of n8 tile j is gate j of row 16 mt + g +
+    // 8 (e >> 1), unit + (e & 1)
+    uint32_t hp[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = mt * 16 + g + 8 * hh, row = row0 + r;
+      float gv[4][2], hv[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int e = 2 * hh + q;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gv[j][q] = acc[j][e] + bq[j][q];
+        const float cn = sigmoid_f(gv[1][q]) * cst[e] +
+                         sigmoid_f(gv[0][q]) * tanhf(gv[2][q]);
+        cst[e] = cn;
+        hv[q] = sigmoid_f(gv[3][q]) * tanhf(cn);
+      }
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(hv[0], hv[1]);
+      hp[hh] = *reinterpret_cast<const uint32_t*>(&h2);
+      if (row < B) {
+        const size_t o = (size_t)t * B + row;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(gout + o * 4 * H + j * H +
+                                             unit) =
+              __floats2bfloat162_rn(gv[j][0], gv[j][1]);
+        *reinterpret_cast<__nv_bfloat162*>(hout + o * H + unit) = h2;
+        *reinterpret_cast<float2*>(c_out + o * H + unit) =
+            make_float2(cst[2 * hh], cst[2 * hh + 1]);
+      }
+    }
+    // each row's 8 units (16 bytes) gathered from its four lanes; lane t4
+    // stores both rows into blocks t4, t4 + 4, t4 + 8, t4 + 12
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      uint4 v;
+      v.x = __shfl_sync(0xffffffffu, hp[hh], (lane & ~3) | 0);
+      v.y = __shfl_sync(0xffffffffu, hp[hh], (lane & ~3) | 1);
+      v.z = __shfl_sync(0xffffffffu, hp[hh], (lane & ~3) | 2);
+      v.w = __shfl_sync(0xffffffffu, hp[hh], (lane & ~3) | 3);
+      const bf16* dst = hs + ((size_t)(t & 1) * R + mt * 16 + g + 8 * hh) *
+                                 LH + u0 + ug * 8;
+#pragma unroll
+      for (int p = t4; p < EC_CL; p += 4) st_cluster16(dst, p, v);
+    }
+    cluster_arrive();
+    ec_sync(1, nt);                  // x part t+1 is in xp
+  }
+  cluster_wait();   // no block leaves while another may still write to it
+}
+
+// Shared memory of encoder_cluster_kernel<MT>, in bytes.
+static size_t cluster_smem(int MT, int N, int H) {
+  const size_t nug = H / EC_CL / 8, R = 16 * MT;
+  return sizeof(bf16) * (32 * nug * (N + H + EC_PAD) + 2 * R * (H + EC_PAD) +
+                         R * (N + EC_PAD)) +
+         sizeof(float) * 2 * MT * nug * 16 * 32;
+}
+
+// m16 tiles of rows a cluster takes: 16 rows up to B = 16, then 32, and 48
+// from B = 97, so that B = 128 needs 6 clusters of 16 and runs in one wave
+// on an H100, which holds 7 at once (encoder_lstm_fwd_plan); 64 rows would
+// not fit a block's shared memory.
+static int cluster_mt(int B) { return B <= 16 ? 1 : B <= 96 ? 2 : 3; }
+
+// Whether the cluster kernel takes these shapes: bf16, H a multiple of
+// 8 EC_CL up to 16 EC_CL (128 or 256), N a multiple of 16, the inputs on
+// 16-byte boundaries and the shared memory within what a block may use.
+static bool encoder_cluster_ok(int bf16, int B, int N, int H,
+                               const void* xf, const void* xr,
+                               const void* wf, const void* wb) {
+  if (!bf16 || B < 1 || H % (8 * EC_CL) || H > 16 * EC_CL || N < 16 ||
+      N % 16)
+    return false;
+  if (((uintptr_t)xf | (uintptr_t)xr | (uintptr_t)wf | (uintptr_t)wb) % 16)
+    return false;
+  int dev, optin;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  return cluster_smem(cluster_mt(B), N, H) <= (size_t)optin;
+}
+
+// The launch configuration of encoder_cluster_kernel<MT>, its attributes
+// set (dynamic shared memory, a cluster of 16: non-portable).
+template <int MT>
+static cudaError_t cluster_config(const EncFwd& a, cudaLaunchConfig_t* cfg,
+                                  cudaLaunchAttribute* attr) {
+  auto kern = encoder_cluster_kernel<MT>;
+  const size_t smem = cluster_smem(MT, a.N, a.H);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(2 * a.NG * EC_CL);
+  cfg->blockDim = dim3(64 * MT * (a.H / EC_CL / 8));
+  cfg->dynamicSmemBytes = smem;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = EC_CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int MT>
+static cudaError_t run_cluster(const EncFwd& a, cudaStream_t s) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<MT>(a, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  cfg.stream = s;
+  err = cudaLaunchKernelEx(&cfg, encoder_cluster_kernel<MT>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+static EncFwd encoder_args(const void* xf, const void* xr, const void* wf,
+                           const void* bf, const void* wb, const void* bb,
+                           void* gf, void* gb, void* hf, void* hb, void* cf,
+                           void* cb, int B, int T, int N, int H) {
+  const int R = 16 * cluster_mt(B);
+  return EncFwd{(const bf16*)xf, (const bf16*)xr, (const bf16*)wf,
+                (const bf16*)wb, (const float*)bf, (const float*)bb,
+                (bf16*)gf, (bf16*)gb, (bf16*)hf, (bf16*)hb, (float*)cf,
+                (float*)cb, B, T, N, H, (B + R - 1) / R};
+}
+
 // ------------------------------------------------------------- backward
 //
 // Replaces the TPU kernel tacotron2_tpu/kernels/encoder_lstm.py
@@ -207,13 +569,24 @@ int encoder_lstm_bwd(int bf16, const void* wtf, const void* wtb,
 #undef T2_ARGS
 }
 
-// bf16 != 0: operands are __nv_bfloat16, else float. Returns cudaError_t.
+// bf16 != 0: operands are __nv_bfloat16, else float. The cluster kernel
+// where encoder_cluster_ok takes the shapes, else one launch per step.
+// Returns cudaError_t.
 int encoder_lstm_fwd(int bf16, const void* xf, const void* xr, const void* wf,
                      const void* bf, const void* wb, const void* bb, void* gf,
                      void* gb, void* hf, void* hb, void* cf, void* cb, int B,
                      int T, int N, int H, void* stream) {
   if (H % ENC_UNITS != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (encoder_cluster_ok(bf16, B, N, H, xf, xr, wf, wb)) {
+    const EncFwd a = encoder_args(xf, xr, wf, bf, wb, bb, gf, gb, hf, hb, cf,
+                                  cb, B, T, N, H);
+    switch (cluster_mt(B)) {
+      case 1: return (int)run_cluster<1>(a, s);
+      case 2: return (int)run_cluster<2>(a, s);
+      default: return (int)run_cluster<3>(a, s);
+    }
+  }
   if (bf16)
     return (int)run<__nv_bfloat16>(xf, xr, wf, (const float*)bf, wb,
                                    (const float*)bb, gf, gb, hf, hb,
@@ -221,6 +594,42 @@ int encoder_lstm_fwd(int bf16, const void* xf, const void* xr, const void* wf,
   return (int)run<float>(xf, xr, wf, (const float*)bf, wb, (const float*)bb,
                          gf, gb, hf, hb, (float*)cf, (float*)cb, B, T, N, H,
                          s);
+}
+
+// Which design encoder_lstm_fwd takes at these shapes (inputs assumed on
+// 16-byte boundaries): returns 1 for the cluster kernel, with *needed its
+// clusters and *active how many the device holds at once
+// (cudaOccupancyMaxActiveClusters), 0 for one launch per step; < 0 a
+// device query failed (the cudaError_t, negated).
+int encoder_lstm_fwd_plan(int bf16, int B, int N, int H, int* needed,
+                          int* active) {
+  const char* al = nullptr;  // any 16-byte aligned address
+  if (!encoder_cluster_ok(bf16, B, N, H, al, al, al, al)) return 0;
+  const EncFwd a = encoder_args(nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, B, 1, N, H);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* kern;
+  cudaError_t err;
+  switch (cluster_mt(B)) {
+    case 1:
+      err = cluster_config<1>(a, &cfg, &attr);
+      kern = (const void*)encoder_cluster_kernel<1>;
+      break;
+    case 2:
+      err = cluster_config<2>(a, &cfg, &attr);
+      kern = (const void*)encoder_cluster_kernel<2>;
+      break;
+    default:
+      err = cluster_config<3>(a, &cfg, &attr);
+      kern = (const void*)encoder_cluster_kernel<3>;
+  }
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(active, kern, &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  *needed = 2 * a.NG;
+  return 1;
 }
 
 const char* error_string(int err) {

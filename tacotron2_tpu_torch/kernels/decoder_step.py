@@ -22,8 +22,12 @@ the length are masked.
 
 ``decoder_step_chunk`` takes the kernel (``csrc/decoder_step.cu``) for CUDA
 tensors and the plain version for CPU tensors; nothing else picks between
-them. The CUDA source's header note gives the kernel's design and what
-bounds it on the H100.
+them. A bf16 chunk runs as one persistent cooperative launch, the batched
+chunk's persistent kernel at B=1 with this TPU kernel's cast points
+(``csrc/persistent_chunk.cuh``), from the LSTM weights packed once in
+fragment order; fp32 and other shapes take per-step launches. The CUDA
+source's header note gives the kernel's design and what bounds it on the
+H100.
 """
 
 from __future__ import annotations
@@ -41,8 +45,8 @@ from tacotron2_tpu_torch.kernels.decoder_batch import (
 from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks
 
 # The packed weights are the batched chunk's (``BatchDecoderParams``:
-# row-major (in, out), LSTM weights block-major, compute dtype) except that
-# ``k2`` stays fp32 and there is no fragment-order copy of the LSTMs.
+# row-major (in, out), LSTM weights block-major, compute dtype, at bf16 the
+# LSTMs again in fragment order) except that ``k2`` stays fp32.
 FusedDecoderParams = BatchDecoderParams
 
 _KERNELS = ("prenet_kernel", "lstm_row_kernel", "query_kernel",
@@ -57,7 +61,7 @@ def pack_decoder_params(model, dtype: torch.dtype) -> FusedDecoderParams:
         conv = att.location_layer.location_conv.conv.weight     # (F, 2, ks)
         dense = att.location_layer.location_dense.linear_layer.weight
         k2 = torch.einsum("fck,Df->kcD", conv.float(), dense.float())
-    return base._replace(k2=k2.contiguous(), w1f=None, w2f=None)
+    return base._replace(k2=k2.contiguous())
 
 
 def attention_inputs(memory: torch.Tensor, processed: torch.Tensor,
@@ -147,8 +151,10 @@ decoder_step_chunk_plain.calls = 0
 # ----------------------------------------------------------------- kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"decoder_step_chunk": [_I] + [_P] * 32 + [_I] * 10
+_SIGNATURES = {"decoder_step_chunk": [_I] + [_P] * 35 + [_I] * 10
                + [ctypes.c_float, _P],
+               "decoder_step_scratch": [_I] * 4 + [
+                   ctypes.POINTER(ctypes.c_size_t)],
                "decoder_step_limits": [_I] * 8 + [
                    ctypes.POINTER(ctypes.c_size_t),
                    ctypes.POINTER(ctypes.c_int)]}
@@ -199,16 +205,21 @@ def decoder_step_chunk(fp: FusedDecoderParams, carry: ChunkCarry,
     align = torch.empty(cs, 1, T, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()
     lib = _build.load("decoder_step", _SIGNATURES)
+    nbytes = ctypes.c_size_t(0)
+    lib.decoder_step_scratch(p, e, a, d, ctypes.byref(nbytes))
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         status = lib.decoder_step_chunk(
             int(fp.w1.dtype == torch.bfloat16),
             *(x.data_ptr() for x in (fp.pre1, fp.pre2, fp.w1, fp.b1, fp.w2,
                                      fp.b2, fp.wq, fp.k2, fp.v, fp.wpe,
-                                     fp.bpe, mem, proc, emask)),
+                                     fp.bpe)),
+            ptr(fp.w1f), ptr(fp.w2f),
+            *(x.data_ptr() for x in (mem, proc, emask)),
             ptr(kp1), ptr(kp2),
             *(x.data_ptr() for x in (h1, c1, h2, c2, w, wc, ctx, prev, fin,
                                      lens, a2, q, energies, mel, gate,
-                                     align)),
+                                     align, scratch)),
             T, n, p, e, a, d, datt, ks, cs, int(t0), float(gate_logit),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, status, "decoder_step_chunk")

@@ -12,10 +12,12 @@ block makes is whole sectors of its own. The backward kernels' products
 (``to_col_tiles``): the CUDA-core tile product a tile per block, the
 tensor-core product (``csrc/tc_product.cuh``) two tiles per block; the
 forward scan's tensor-core product reads the block-major slabs of 8 units
-as such column tiles of 32. The persistent batched decoder chunk
-(``csrc/decoder_batch.cu``) reads ``[wi ; wh]^T`` as the A operand of
-``mma.sync.m16n8k16`` in the instruction's fragment order
-(``to_mma_tiles``).
+as such column tiles of 32. The persistent decoder chunk
+(``csrc/persistent_chunk.cuh``, batched and single-utterance) reads
+``[wi ; wh]^T`` as the A operand of ``mma.sync.m16n8k16`` in the
+instruction's fragment order (``to_mma_tiles``); the encoder's cluster
+kernel (``csrc/encoder_lstm.cu``) stages its block's rows of the
+block-major slabs of 4 units in shared memory.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def from_col_tiles(wt: torch.Tensor, n: int) -> torch.Tensor:
 
 
 
-MMA_UNITS = 4  # PC_UG of csrc/decoder_batch.cu: 4 units x 4 gates = 16 rows
+MMA_UNITS = 4  # PC_UG of csrc/persistent_chunk.cuh: 4 units x 4 gates
 
 
 def _mma_lanes():

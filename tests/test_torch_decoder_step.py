@@ -250,3 +250,137 @@ def test_input_checks():
     with pytest.raises(ValueError, match="one utterance"):
         tm.infer_fused(model, torch.ones(2, 4, dtype=torch.long),
                        torch.tensor([4, 4]), tcfg, device="cpu")
+
+
+# ------------------------------- the persistent chunk at B=1, emulated
+
+def test_bf16_pack_keeps_the_fragment_order_weights():
+    """The persistent chunk reads both LSTMs in mma fragment order: at bf16
+    the pack keeps them (where the widths are whole unit groups and k16
+    steps), at fp32 it has none."""
+    from tacotron2_tpu_torch.kernels.lstm_layout import (from_blocks,
+                                                         from_mma_tiles)
+    tcfg = Tacotron2Config(**{**DIMS, "attention_rnn_dim": 48})
+    model = tm.Tacotron2(tcfg, torch.Generator().manual_seed(0))
+    fp = ds.pack_decoder_params(model, torch.bfloat16)
+    for blocks, frags in ((fp.w1, fp.w1f), (fp.w2, fp.w2f)):
+        assert frags is not None and frags.dtype == torch.bfloat16
+        assert torch.equal(from_mma_tiles(frags), from_blocks(blocks))
+    fp32 = ds.pack_decoder_params(model, torch.float32)
+    assert fp32.w1f is None and fp32.w2f is None
+
+
+PC_WARPS, PC_UMAX, PC_UG, PC_EP = 16, 2, 4, 4   # csrc/persistent_chunk.cuh
+
+
+@pytest.mark.parametrize("K,H,G", [(96, 32, 4), (160, 64, 8)])
+def test_persistent_lstm_partials_at_one_row(K, H, G):
+    """pc_lstm at B=1 (one n8 tile, the row in column 0), emulated: block b
+    owns unit groups b and b + G; the 16 warps split the k16 steps
+    (k0 = warp nk / 16); each warp's C fragments (gates^T: 16 gate rows x 8
+    columns) land in the partial buffer at ((warp * PC_UMAX + j) * 16 + g +
+    8 (e >> 1)) * 8 + 2 t4 + (e & 1); the cell adds gate q of unit u from
+    row q * 4 + u in warp order. Equals the cell on x @ W (fp32)."""
+    from tacotron2_tpu_torch.kernels.decoder_batch import _cell
+    from tacotron2_tpu_torch.kernels.lstm_layout import to_mma_tiles
+    g0 = torch.Generator().manual_seed(K + H)
+    w = torch.randn(K, 4 * H, generator=g0)
+    x = torch.randn(1, K, generator=g0)
+    bias = torch.randn(4 * H, generator=g0)
+    c = torch.randn(1, H, generator=g0)
+    wm = to_mma_tiles(w)                 # (H / 4, K / 16, 32, 8)
+    nk = K // 16
+    lane = np.arange(32)
+    gq, tq = lane // 4, lane % 4
+    gates = torch.full((1, 4 * H), float("nan"))
+    for b in range(G):
+        red = np.zeros(PC_WARPS * PC_UMAX * 16 * 8, np.float32)
+        for warp in range(PC_WARPS):
+            k0, k1 = warp * nk // PC_WARPS, (warp + 1) * nk // PC_WARPS
+            for j in range(PC_UMAX):
+                grp = b + j * G
+                if grp >= H // PC_UG:
+                    continue
+                acc = np.zeros((32, 4), np.float32)
+                for kk in range(k0, k1):
+                    f = wm[grp, kk].numpy()           # (lane, 8 values)
+                    a = np.zeros((16, 16), np.float32)
+                    for h in range(2):
+                        a[gq, 2 * tq + h] = f[:, h]
+                        a[gq + 8, 2 * tq + h] = f[:, 2 + h]
+                        a[gq, 2 * tq + 8 + h] = f[:, 4 + h]
+                        a[gq + 8, 2 * tq + 8 + h] = f[:, 6 + h]
+                    bt = np.zeros((16, 8), np.float32)   # X^T, row 0 only
+                    bt[:, 0] = x[0, 16 * kk:16 * kk + 16].numpy()
+                    cm = a @ bt
+                    acc += np.stack([cm[gq, 2 * tq], cm[gq, 2 * tq + 1],
+                                     cm[gq + 8, 2 * tq],
+                                     cm[gq + 8, 2 * tq + 1]], axis=1)
+                for e in range(4):
+                    red[((warp * PC_UMAX + j) * 16 + gq + (e >> 1) * 8) * 8
+                        + 2 * tq + (e & 1)] = acc[:, e]
+        for j in range(PC_UMAX):
+            for u in range(PC_UG):
+                unit = (b + j * G) * PC_UG + u
+                if unit >= H:
+                    continue
+                for q in range(4):
+                    s = np.float32(0.0)
+                    for wp in range(PC_WARPS):
+                        s += red[((wp * PC_UMAX + j) * 16 + q * PC_UG + u)
+                                 * 8]
+                    gates[0, q * H + unit] = float(s)
+    assert not torch.isnan(gates).any()
+    h, cn = _cell(gates + bias, c)
+    h_want, c_want = _cell(x @ w + bias, c)
+    torch.testing.assert_close(h, h_want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(cn, c_want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,D,ks", [(37, 128, 31), (9, 64, 15)])
+def test_single_utterance_energy_items(T, D, ks):
+    """pc_energy_f32, the persistent chunk's energies at row 6's cast
+    points, emulated item by item: PC_EP positions an item, thread i on
+    position i / 128 and columns i % 128 + 128 j, the location term in
+    fp32 from fp32 K2 and unrounded w, w_cum windows, tanh rounded to bf16
+    before the v-product, each position's four warp sums added in warp
+    order. Equals the plain version's conv form of the same step."""
+    rng = np.random.RandomState(T + D)
+    q = rng.randn(D).astype(np.float32)
+    w, wc = rng.rand(T).astype(np.float32), rng.rand(T).astype(np.float32)
+    k2 = (rng.randn(ks, 2, D) * 0.1).astype(np.float32)
+    proc = rng.randn(T, D).astype(np.float32)
+    v = torch.from_numpy(rng.randn(D).astype(np.float32)).to(
+        torch.bfloat16).float().numpy()
+    bf = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+    pad, ww = (ks - 1) // 2, PC_EP + ks - 1
+    e = np.full(T, np.nan, np.float32)
+    for t0 in range(0, T, PC_EP):
+        pos = t0 - pad + np.arange(ww)
+        inside = (pos >= 0) & (pos < T)
+        win0 = np.where(inside, w[np.clip(pos, 0, T - 1)], 0.0)
+        win1 = np.where(inside, wc[np.clip(pos, 0, T - 1)], 0.0)
+        red = np.zeros(16, np.float32)
+        for i in range(512):
+            tl, t = i >> 7, t0 + (i >> 7)
+            if t >= T:
+                continue
+            acc = np.float32(0.0)
+            for d in range(i & 127, D, 128):
+                m = np.float32(q[d])
+                for k in range(ks):
+                    m = np.float32(m + k2[k, 0, d] * np.float32(win0[tl + k]))
+                    m = np.float32(m + k2[k, 1, d] * np.float32(win1[tl + k]))
+                acc += bf(np.tanh(m + proc[t, d])) * v[d]
+            red[i >> 5] += acc
+        for p in range(min(PC_EP, T - t0)):
+            r = red[4 * p:4 * p + 4]
+            e[t0 + p] = ((r[0] + r[1]) + r[2]) + r[3]
+    win = torch.from_numpy(np.stack([w, wc])[None])       # (1, 2, T)
+    loc = torch.nn.functional.conv1d(
+        win, torch.from_numpy(k2).permute(2, 1, 0), padding=pad)
+    feat = torch.tanh(torch.from_numpy(q)[None, None] + loc.transpose(1, 2)
+                      + torch.from_numpy(proc)[None])
+    want = (feat.to(torch.bfloat16).float() @ torch.from_numpy(v))[0]
+    np.testing.assert_allclose(e, want.numpy(), rtol=1e-4, atol=2e-3)

@@ -179,3 +179,191 @@ def test_bilstm_grads_match_jax_vjp(inputs):
         err = np.abs(g.numpy() - w).max() / np.abs(w).max()
         assert err <= 1e-4, (name, err)
     assert torch.all(x.grad[B // 2:, T - 3:] == 0.0)
+
+
+# ------------------------------------------- the cluster forward, emulated
+
+EC_CL, EC_PAD = 16, 8   # csrc/encoder_lstm.cu
+LANE = np.arange(32)
+G4, T4 = LANE // 4, LANE % 4
+
+
+def _bf(x):
+    """x rounded to bf16, back in fp32 (round to nearest even)."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _ldmatrix_x4(sm, rows, cols):
+    """ldmatrix.x4 from a 2-D shared array: lane l gives the address
+    (rows[l], cols[l]) of row l % 8 of matrix l // 8; lane l's register i
+    holds elements 2 (l % 4) and 2 (l % 4) + 1 of row l // 4 of matrix i.
+    Returns (32 lanes, 4 registers, 2 values)."""
+    src = 8 * np.arange(4)[None, :] + G4[:, None]       # (lane, register)
+    r, c = rows[src], cols[src] + 2 * T4[:, None]
+    return np.stack([sm[r, c], sm[r, c + 1]], axis=-1)
+
+
+def _mma(acc, fa, fb):
+    """acc (32, 4) += A @ B as mma.sync.m16n8k16 defines its fragments:
+    A from fa (32, 4, 2), B from fb (32, 2, 2), C (g, 2t..2t+1) in c0, c1
+    and (g + 8, 2t..2t+1) in c2, c3."""
+    a = np.zeros((16, 16), np.float32)
+    b = np.zeros((16, 8), np.float32)
+    for h in range(2):
+        a[G4, 2 * T4 + h] = fa[:, 0, h]
+        a[G4 + 8, 2 * T4 + h] = fa[:, 1, h]
+        a[G4, 2 * T4 + 8 + h] = fa[:, 2, h]
+        a[G4 + 8, 2 * T4 + 8 + h] = fa[:, 3, h]
+        b[2 * T4 + h, G4] = fb[:, 0, h]
+        b[2 * T4 + 8 + h, G4] = fb[:, 1, h]
+    c = a @ b
+    acc += np.stack([c[G4, 2 * T4], c[G4, 2 * T4 + 1], c[G4 + 8, 2 * T4],
+                     c[G4 + 8, 2 * T4 + 1]], axis=1)
+
+
+def _ec_product(acc, a, a_row, w, w_row, k0, nk):
+    """ec_product: acc (4 n8 tiles, 32, 4) += A @ W^T, A the warp's 16 rows
+    of a from a_row, W^T its 32 weight rows of w from w_row, k16 steps from
+    column k0 of w, both by the kernel's ldmatrix addresses."""
+    r8, mi = LANE & 7, LANE >> 3
+    for s in range(nk):
+        fa = _ldmatrix_x4(a, a_row + r8 + (mi & 1) * 8, (mi >> 1) * 8 + s * 16)
+        wc = k0 + (mi & 1) * 8 + s * 16
+        f0 = _ldmatrix_x4(w, w_row + r8 + (mi >> 1) * 8, wc)
+        f1 = _ldmatrix_x4(w, w_row + 16 + r8 + (mi >> 1) * 8, wc)
+        _mma(acc[0], fa, f0[:, 0:2])
+        _mma(acc[1], fa, f0[:, 2:4])
+        _mma(acc[2], fa, f1[:, 0:2])
+        _mma(acc[3], fa, f1[:, 2:4])
+
+
+def _emulate_cluster_forward(wf, bf, wb, bb, xs, xsr):
+    """encoder_cluster_kernel, block by block and lane by lane: clusters of
+    16 blocks, cluster 2 rg + d scanning direction d for row group rg; the
+    block's rows of [wi ; wh]^T staged from the block-major weights; the x
+    part (the x warp's, from the staged x rows) then the h part (the h
+    warp's, from the h buffer) into one fp32 accumulator per gate; the cell
+    on the gate-interleaved accumulators; h rounded to bf16 and pushed into
+    every block's h buffer of the next parity, 16 bytes a row as the
+    shuffles gather them. Returns the six stacks as the kernel stores
+    them."""
+    B, T, N = xs.shape
+    H = wf.shape[0] * 4
+    K = N + H
+    UB, MT = H // EC_CL, 1 if B <= 16 else 2 if B <= 96 else 3
+    NUG, R = UB // 8, 16 * MT
+    LW, LX, LH = K + EC_PAD, N + EC_PAD, H + EC_PAD
+    NG = -(-B // R)
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))
+    out = [np.full((T, B, 4 * H), np.nan, np.float32),
+           np.full((T, B, 4 * H), np.nan, np.float32),
+           np.full((T, B, H), np.nan, np.float32),
+           np.full((T, B, H), np.nan, np.float32),
+           np.full((T, B, H), np.nan, np.float32),
+           np.full((T, B, H), np.nan, np.float32)]
+    for cl in range(2 * NG):
+        d, row0 = cl & 1, (cl >> 1) * R
+        x = (xsr if d else xs).float().numpy()
+        wg = (wb if d else wf).float().numpy()       # (H / 4, K, 16)
+        bias = (bb if d else bf).numpy()
+        gout, hout, cout = out[d], out[2 + d], out[4 + d]
+        ws = np.zeros((EC_CL, 32 * NUG, LW), np.float32)
+        for rank in range(EC_CL):
+            u0 = rank * UB
+            for i in range(UB // 4 * K * 2):
+                half, k, bl = i & 1, (i >> 1) % K, (i >> 1) // K
+                piece = wg[u0 // 4 + bl, k, half * 8:half * 8 + 8]
+                for q in range(8):
+                    col = half * 8 + q
+                    u = bl * 4 + (col & 3)
+                    ws[rank, (u >> 3) * 32 + (col >> 2) * 8 + (u & 7),
+                       k] = piece[q]
+        hs = np.zeros((EC_CL, 2, R, LH), np.float32)
+        cst = np.zeros((EC_CL, MT * NUG, 32, 4), np.float32)
+        for t in range(T):
+            xsm = np.zeros((R, LX), np.float32)    # rows past B read zeros
+            for r in range(R):
+                if row0 + r < B:
+                    xsm[r, :N] = x[row0 + r, t]
+            pushes = []
+            for rank in range(EC_CL):
+                u0 = rank * UB
+                for warp in range(MT * NUG):
+                    mt, ug = warp // NUG, warp % NUG
+                    unit = u0 + ug * 8 + 2 * T4
+                    acc = np.zeros((4, 32, 4), np.float32)
+                    _ec_product(acc, xsm, mt * 16, ws[rank], ug * 32, 0,
+                                N // 16)
+                    if t > 0:
+                        _ec_product(acc, hs[rank, (t - 1) & 1], mt * 16,
+                                    ws[rank], ug * 32, N, H // 16)
+                    hp = np.zeros((2, 32, 2), np.float32)
+                    for hh in range(2):
+                        row = row0 + mt * 16 + G4 + 8 * hh
+                        for q in range(2):
+                            e = 2 * hh + q
+                            gv = [acc[j, :, e] + bias[j * H + unit + q]
+                                  for j in range(4)]
+                            cn = (sig(gv[1]) * cst[rank, warp, :, e]
+                                  + sig(gv[0]) * np.tanh(gv[2]))
+                            cst[rank, warp, :, e] = cn
+                            hp[hh, :, q] = _bf(sig(gv[3]) * np.tanh(cn))
+                            ok = row < B
+                            for j in range(4):
+                                gout[t, row[ok], j * H + unit[ok] + q] = \
+                                    _bf(gv[j][ok])
+                            hout[t, row[ok], unit[ok] + q] = hp[hh, ok, q]
+                            cout[t, row[ok], unit[ok] + q] = cn[ok]
+                        # lane l's 16 bytes: the pairs of lanes (l & ~3) | i
+                        v = hp[hh][(LANE & ~3)[:, None] + np.arange(4)]
+                        v = v.reshape(32, 8)
+                        rl = mt * 16 + G4 + 8 * hh
+                        for lane in range(32):
+                            for p in range(T4[lane], EC_CL, 4):
+                                pushes.append((p, t & 1, rl[lane],
+                                               u0 + ug * 8, v[lane]))
+            for p, par, r, c0, v in pushes:   # behind the cluster barrier
+                hs[p, par, r, c0:c0 + 8] = v
+    return out
+
+
+@pytest.mark.parametrize("B,T,N,Hd", [(3, 3, 32, 128), (40, 2, 32, 128),
+                                      (20, 2, 16, 256), (100, 2, 16, 128)])
+def test_cluster_forward_index_map(B, T, N, Hd):
+    """Row 3's bf16 cluster kernel emulated (cluster row groups of 16, 32
+    and 48 rows, the staged weight rows, the ldmatrix addresses and mma
+    fragments of the x and h parts, the gate-interleaved cell, the
+    exchange of h between the cluster's blocks) against the plain version:
+    every element of the six stacks written, within the bf16 tolerance
+    (sums in another order)."""
+    rng = np.random.RandomState(B + Hd)
+    bf16 = torch.bfloat16
+    mk = lambda *s: torch.from_numpy((rng.rand(*s) - 0.5).astype(np.float32))
+    from tacotron2_tpu_torch.kernels.lstm_layout import to_blocks
+    wf, wb = (to_blocks(mk(N + Hd, 4 * Hd).mul(0.2).to(bf16), 4)
+              for _ in range(2))
+    bf, bb = (mk(4 * Hd).mul(0.2) for _ in range(2))
+    xs, xsr = (mk(B, T, N).to(bf16) for _ in range(2))
+    got = _emulate_cluster_forward(wf, bf, wb, bb, xs, xsr)
+    want = el.bilstm_forward_plain(wf, bf, wb, bb, xs, xsr)
+    for name, g, w in zip(("gf", "gb", "hf", "hb", "cf", "cb"), got, want):
+        assert not np.isnan(g).any(), name
+        close(g, w.float().numpy())
+        if name in ("cf", "cb"):
+            np.testing.assert_allclose(g, w.numpy(), atol=2e-3)
+
+
+def test_probe_variants_find_their_markers():
+    """The card's probes switch parts of the kernels off by editing copies
+    of the sources at markers; every marker must still be in the source
+    (each variant differs from the source as built), or the probe raises
+    on the card."""
+    from tacotron2_tpu_torch.kernels import chunk_probe, encoder_probe
+    enc = encoder_probe._sources()
+    assert len(set(enc.values())) == len(enc)
+    for source in ("decoder_batch", "decoder_step"):
+        chunk = chunk_probe._variants(source)
+        assert chunk["traced"]["persistent_chunk.cuh"] != \
+            chunk["idle"]["persistent_chunk.cuh"]
+        assert "pc_trace_read" in chunk["traced"][f"{source}.cu"]

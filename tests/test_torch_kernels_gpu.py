@@ -551,13 +551,25 @@ def test_mel_kernel_rejects_what_it_does_not_take(cuda):
 # ------------------------------------------------------ slice 5: rows 1, 5
 
 def kernel_names(run):
-    """Names of the CUDA kernels one run() launches (torch.profiler)."""
+    """Names of the CUDA kernels one run() launches (torch.profiler). Now
+    and then a short session on the card's machine records no device event
+    at all, so the session is widened by 50 ms of idle time on each side of
+    run(), and a session that still records none is taken again, up to
+    three times."""
+    import time
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 @pytest.mark.gpu
@@ -671,3 +683,235 @@ def test_persistent_chunk_is_one_deterministic_launch(cuda):
     for x, y in zip((a.mel, a.gate, a.align, *a.carry),
                     (b.mel, b.gate, b.align, *b.carry)):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------------ slice 6: rows 3, 6
+
+# Row 3 against its plain version: each stack's largest |err| as a share of
+# its largest |value| (chip_smoke.py's ENC_FWD_REL, the same table), and
+# every element within chip_smoke.py's ENC_TOL (atol, rtol).
+ENC_FWD_REL = dict(gf=5e-2, gb=5e-2, hf=6e-2, hb=5e-2, cf=2e-3, cb=2e-3)
+ENC_TOL = (3e-2, 5e-2)
+ENC_NAMES = ("gf", "gb", "hf", "hb", "cf", "cb")
+
+
+def encoder_case(device, dtype, B, T, N=512, H=256):
+    """Seeded weights and inputs of the encoder BiLSTM at (B, T, N, H)."""
+    g = torch.Generator(device=device).manual_seed(B * 1000 + T)
+    rand = lambda *s: (torch.rand(*s, generator=g, device=device) - 0.5)
+    wf, wb = (to_blocks(rand(N + H, 4 * H).mul(0.1).to(dtype), 4)
+              for _ in range(2))
+    bf, bb = (rand(4 * H).mul(0.2) for _ in range(2))
+    xs, xsr = (torch.relu(rand(B, T, N) * 2).to(dtype) for _ in range(2))
+    return wf, bf, wb, bb, xs, xsr
+
+
+def assert_encoder_close(got, want):
+    errs = rel_errs(got, want, ENC_NAMES)
+    for name in ENC_NAMES:
+        assert errs[name] <= ENC_FWD_REL[name], errs
+    for name, a, b in zip(ENC_NAMES, got, want):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= ENC_TOL[0] + ENC_TOL[1] * b.float().abs())
+                    .all()), (name, float(diff.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [32, 48, 128, 192])
+@pytest.mark.parametrize("B", [1, 8, 13, 32, 128])
+def test_encoder_cluster_kernel_matches_plain(cuda, B, T):
+    """Row 3 at bf16 and full width (N=512, H=256): one launch of the
+    cluster kernel (no per-step launch), the same bits in two runs, every
+    stack within ENC_FWD_REL and ENC_TOL of the plain version."""
+    args = encoder_case(cuda, torch.bfloat16, B, T)
+    run = lambda: el.bilstm_forward(*args)
+    names = kernel_names(run)
+    assert sum("encoder_cluster_kernel" in n for n in names) == 1, names
+    assert not any("encoder_step" in n for n in names), set(names)
+    assert el.forward_plan(B, 512, 256, torch.bfloat16, cuda)[0] == "cluster"
+    got, again = run(), run()
+    for name, a, b in zip(ENC_NAMES, got, again):
+        assert torch.equal(a, b), name
+    want = el.bilstm_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert_encoder_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,N,H", [(torch.float32, 512, 256),
+                                       (torch.bfloat16, 256, 64),
+                                       (torch.bfloat16, 200, 256)],
+                         ids=["fp32", "H64", "N200"])
+def test_encoder_off_range_shapes_take_the_per_step_kernel(cuda, dtype, N,
+                                                            H):
+    """fp32, and bf16 shapes the cluster kernel does not take (H not 128
+    or 256, N not in 16s), launch encoder_step once a step and match the
+    plain version as before."""
+    B, T = 8, 12
+    args = encoder_case(cuda, dtype, B, T, N=N, H=H)
+    run = lambda: el.bilstm_forward(*args)
+    names = kernel_names(run)
+    assert sum("encoder_step" in n for n in names) == T, names
+    assert not any("encoder_cluster_kernel" in n for n in names), names
+    assert el.forward_plan(B, N, H, dtype, cuda)[0] == "per-step"
+    got = run()
+    want = el.bilstm_forward_plain(*args)
+    torch.cuda.synchronize()
+    tol = dict(DTYPES)[dtype]
+    for name, a, b in zip(ENC_NAMES, got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0,
+                                   msg=name)
+
+
+def full_step_case(device, T, cs, keep, r=1, gate_logit=1e30):
+    """A bf16 chunk of one row at the default config's full width
+    (n_frames_per_step r), T encoder positions with the last 9 masked,
+    from a zero carry: (args, kwargs)."""
+    from tacotron2_tpu_torch.config import create_config
+    cfg = create_config().replace(n_frames_per_step=r)
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(7)).to(device)
+    fp = ds.pack_decoder_params(model, torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(T + cs + r)
+    mem = torch.randn(1, T, cfg.encoder_embedding_dim, generator=g,
+                      device=device) * 0.5
+    proc = (torch.randn(1, T, cfg.attention_dim, generator=g, device=device)
+            * 0.5).bfloat16().float()   # processed memory holds bf16 values
+    mask = torch.arange(T, device=device)[None] < T - 9
+    mem, proc, emask = ds.attention_inputs(mem, proc, mask)
+    n, p = fp.pre1.shape
+    z = lambda *s: torch.zeros(*s, device=device)
+    i32 = lambda: torch.zeros(1, dtype=torch.int32, device=device)
+    a, d, e = (cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
+               cfg.encoder_embedding_dim)
+    carry = db.ChunkCarry(z(1, a), z(1, a), z(1, d), z(1, d), z(1, T),
+                          z(1, T), z(1, e), z(1, n), i32(), i32())
+    kp = (None, None)
+    if keep:
+        kp = tuple((torch.rand(cs, 1, p, generator=g, device=device) < 0.5
+                    ).float() for _ in range(2))
+    kw = dict(t0=2, chunk_steps=cs, gate_logit=gate_logit, kp1=kp[0],
+              kp2=kp[1])
+    return (fp, carry, mem, proc, emask), kw
+
+
+def assert_one_persistent_chunk(run):
+    names = kernel_names(run)
+    assert sum("persistent_chunk_kernel" in n for n in names) == 1, names
+    assert not any("lstm_row_kernel" in n for n in names), set(names)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("T", [64, 128, 192])
+def test_decoder_step_persistent_full_width(cuda, T, keep):
+    """Row 6 at bf16 and full width, a 64-step chunk: one persistent
+    launch, every field within STEP_REL, finished and lengths exactly."""
+    args, kw = full_step_case(cuda, T, 64, keep)
+    run = lambda: ds.decoder_step_chunk(*args, **kw)
+    assert_one_persistent_chunk(run)
+    got = run()
+    want = ds.decoder_step_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_chunks_close(got, want, STEP_REL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_decoder_step_persistent_two_frames_a_step(cuda):
+    """Row 6 at full width with r=2 (160 projection columns a step) and
+    keep masks: one persistent launch, every field within STEP_REL."""
+    args, kw = full_step_case(cuda, 128, 32, True, r=2)
+    run = lambda: ds.decoder_step_chunk(*args, **kw)
+    assert_one_persistent_chunk(run)
+    got = run()
+    want = ds.decoder_step_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.mel.shape == (32, 1, 160)
+    assert_chunks_close(got, want, STEP_REL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_decoder_step_persistent_latches_mid_chunk(cuda):
+    """Row 6 at full width with a gate threshold the row first crosses in
+    the middle of the chunk (the midpoint of the widest gap between the
+    plain version's gate logits whose first crossing falls in steps 4 to
+    11 of 16, with the gate column as packed or negated, whichever gives
+    the wider gap): finished and lengths equal the plain version's, and
+    every field (the state keeps stepping after the latch) within
+    STEP_REL."""
+    cs = 16
+    args, kw = full_step_case(cuda, 128, cs, False)
+    fp, n = args[0], args[0].pre1.shape[0]
+    best = None
+    for sign in (1.0, -1.0):   # the gate column as packed, and negated
+        wpe, bpe = fp.wpe.clone(), fp.bpe.clone()
+        wpe[:, n] *= sign
+        bpe[n] *= sign
+        trial = (fp._replace(wpe=wpe, bpe=bpe), *args[1:])
+        free = ds.decoder_step_chunk_plain(*trial, **kw).gate.flatten()
+        vals = free.sort().values
+        for i in range(cs - 1):
+            thr = float(vals[i] + vals[i + 1]) / 2
+            first = int((free > thr).int().argmax())
+            gap = float(vals[i + 1] - vals[i])
+            if bool((free > thr).any()) and 4 <= first <= 11 and (
+                    best is None or gap > best[0]):
+                best = (gap, thr, trial)
+    assert best is not None
+    kw["gate_logit"] = best[1]
+    args = best[2]
+    got = ds.decoder_step_chunk(*args, **kw)
+    want = ds.decoder_step_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(want.carry.fin.all())
+    assert int(want.carry.lens[0]) < kw["t0"] + cs
+    assert_chunks_close(got, want, STEP_REL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_decoder_step_fp32_takes_the_per_step_kernels(cuda):
+    """Row 6 at fp32 keeps the per-step launches (no fragment-order
+    weights in its pack), and matches the plain version as before."""
+    args, kw = full_step_case(cuda, 64, 8, False)
+    fp = args[0]
+    from tacotron2_tpu_torch.config import create_config
+    model = tm.Tacotron2(create_config(),
+                         torch.Generator().manual_seed(7)).to(cuda)
+    fp32 = ds.pack_decoder_params(model, torch.float32)
+    assert fp32.w1f is None and fp.w1f is not None
+    args = (fp32, *args[1:])
+    run = lambda: ds.decoder_step_chunk(*args, **kw)
+    names = kernel_names(run)
+    assert not any("persistent_chunk_kernel" in n for n in names), names
+    assert sum("lstm_row_kernel" in n for n in names) == 2 * 8, names
+    got = run()
+    want = ds.decoder_step_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_chunks_close(got, want, STEP_REL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_decoder_step_off_range_bf16_takes_the_per_step_kernels(cuda):
+    """A bf16 chunk outside the persistent plan (attention width 256, above
+    its 128) keeps the per-step launches, and matches the plain version as
+    before (narrow widths, T=37, 16 steps)."""
+    cfg = CFG.replace(gate_threshold=0.3, attention_dim=256)
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    fp = ds.pack_decoder_params(model, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    T = 37
+    mem = torch.randn(1, T, 128, generator=g, device=cuda) * 0.5
+    proc = (torch.randn(1, T, 256, generator=g, device=cuda) * 0.5
+            ).bfloat16().float()
+    mask = torch.arange(T, device=cuda)[None] < T - 5
+    mem, proc, emask = ds.attention_inputs(mem, proc, mask)
+    n = fp.pre1.shape[0]
+    args = (fp, zero_carry(1, T, n, cuda), mem, proc, emask)
+    kw = dict(t0=3, chunk_steps=16, gate_logit=-0.5)
+    run = lambda: ds.decoder_step_chunk(*args, **kw)
+    names = kernel_names(run)
+    assert not any("persistent_chunk_kernel" in n for n in names), names
+    assert sum("lstm_row_kernel" in n for n in names) == 2 * 16, names
+    got = run()
+    want = ds.decoder_step_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_chunks_close(got, want, STEP_REL[torch.bfloat16])
