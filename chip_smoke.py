@@ -30,13 +30,17 @@ on failure:
    field (STEP_REL) with perturbed attention rejected, timed beside the
    batched chunk's entry called at B=1, a bf16 chunk one launch of the
    persistent kernel (torch.profiler); the int8 product at the two decoder
-   cells' shapes (B=1 and 8, and ragged shapes), timed beside
-   ``torch.matmul`` on a bf16 copy dequantised ahead of time; the fused mel
+   cells' shapes (B=1 and 8, 13 rows, and ragged shapes; x in fp32 and
+   bf16, the same bits twice), the C entry point timed in a CUDA graph and
+   back to back beside ``torch.matmul`` on a bf16 copy dequantised ahead of
+   time, and a wrapper call; the fused mel
    kernel (its DFT as three TF32 tensor-core products) on 16 waveforms of
    6 s (and ragged lengths), timed beside the two ``torch.matmul`` form;
 7. one utterance to audio: ``infer.synthesize([text], fused=True)`` with the
    full V1 HiFi-GAN generator and with Griffin-Lim (max_steps=200), the same
-   text on ``quantize_for_serving`` weights through the step-by-step decoder,
+   text on ``quantize_for_serving`` weights through the step-by-step decoder
+   (captured chunks: the int8 kernel's executions counted on the device,
+   the output held equal to the same chunks run step by step),
    ``StreamingSynthesizer(chunk_steps=32).stream(text)`` held against the
    offline result, ``stream_batch`` on four texts against the offline
    batch, and the front end on 16 waveforms of 6 s; each path's
@@ -47,13 +51,16 @@ on failure:
    decoder forward scan and backward chain against their plain versions
    over 64 steps (also at T_in 64 and 192) and 512 steps, the backward's
    accumulators bit-identical between two runs, the encoder BiLSTM forward
-   and backward at B=128, each field within its limit and perturbed outputs
-   rejected, the forward also timed at B=128 and B=32 at T 48 and 32;
+   at B=128 and its backward (one cluster launch for the chain) at B=128 x
+   T 128 and 192 and B=32 x T 32 and 48, each field within its limit,
+   perturbed outputs rejected, the backward bit-identical in two runs; the
+   forward also timed at B=128 and B=32 at T 48 and 32;
 9. training: ``train_step`` at B=128, T_in=128, T_out=512, bf16 (one warm
    step, three timed): every training kernel must launch and no plain
    version run; a breakdown by stage and a profile of one step; then the
-   step's loss and encoder gradients with row 3 against the same step with
-   row 3's plain version swapped in (SWAP_REL_BF16);
+   step's loss and encoder gradients with the kernels against the same step
+   with row 3's plain version swapped in, and with row 4's
+   (SWAP_REL_BF16);
 10. one fp32 training step on the card against the CPU plain versions, then
     with cuDNN's convolutions, and each convolution against fp64.
 
@@ -83,6 +90,7 @@ from tacotron2_tpu_torch.kernels import decoder_step as ds
 from tacotron2_tpu_torch.kernels import encoder_lstm as el
 from tacotron2_tpu_torch.kernels import mel_kernel as mk
 from tacotron2_tpu_torch.kernels import train_scan as ts
+from tacotron2_tpu_torch.kernels.int8_probe import graph_ms
 from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks
 from tacotron2_tpu_torch.models import decoder_vjp as dv
 from tacotron2_tpu_torch.models import hifigan
@@ -842,55 +850,86 @@ def step_phase(model, cfg, dev, card):
 
 def int8_phase(dev, card):
     """Row 7 at the two decoder cells' shapes (attention LSTM K=1792,
-    decoder LSTM K=2560; N=4096) at B=1 and B=8, and ragged shapes."""
+    decoder LSTM K=2560; N=4096) at B=1 and B=8, and ragged shapes; x in
+    fp32 and bf16. Times: the C entry point and torch.matmul on a bf16 copy
+    dequantised ahead of time, each as device time in a CUDA graph of 100
+    calls and back to back from the host (CUDA events), and a wrapper
+    call; the weights stay in the 50 MB L2 between calls in both, as they
+    do between the decoder's steps."""
     g = torch.Generator(device=dev).manual_seed(41)
     out = {}
     for B, K, N in ((1, 1792, 4096), (1, 2560, 4096), (8, 1792, 4096),
-                    (8, 2560, 4096), (3, 100, 83), (19, 257, 40), (2, 33, 7)):
+                    (8, 2560, 4096), (3, 100, 83), (19, 257, 40), (2, 33, 7),
+                    (13, 2560, 4096)):
         x = torch.randn(B, K, generator=g, device=dev)
         w = torch.randn(K, N, generator=g, device=dev) * 0.05
         w_q, scale = (t.to(dev) for t in i8.quantize_int8(w))
-        got = i8.int8_matmul(x, w_q, scale)
+        packed = i8.pack_int8(w_q)
         want = i8.int8_matmul_plain(x, w_q, scale)
-        torch.cuda.synchronize()
-        err, rel = field_err(got, want)
-        if rel > INT8_REL:
-            fail(f"int8 kernel B={B} K={K} N={N}: max |err| {err}, "
-                 f"{rel:.3e} of the largest value, beyond {INT8_REL}")
+        errs = []
+        for xx in (x, x.to(torch.bfloat16)):
+            got = i8.int8_matmul(xx, w_q, scale, packed=packed)
+            again = i8.int8_matmul(xx, w_q, scale, packed=packed)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"int8 kernel B={B} K={K} N={N}: two runs differ")
+            err, rel = field_err(got, want)
+            if rel > INT8_REL:
+                fail(f"int8 kernel B={B} K={K} N={N} x {xx.dtype}: max "
+                     f"|err| {err}, {rel:.3e} of the largest value, beyond "
+                     f"{INT8_REL}")
+            errs.append((err, rel))
         bad = got.clone()
         bad[:, N // 2] *= 1.05
         if field_err(bad, want)[1] <= INT8_REL:
             fail("the int8 comparison passes a column scaled by 1.05")
-        if N != 4096:
+        err, rel = max(errs)
+        if N != 4096 or B > 8:
             print(f"int8 [{card}] B={B} K={K} N={N}: max |err| {err:.3e} "
-                  f"({rel:.2e} of the largest value, limit {INT8_REL})")
+                  f"({rel:.2e} of the largest value, limit {INT8_REL}; x in "
+                  f"fp32 and bf16, the same bits twice)")
             continue
-        ms = cuda_ms(lambda: i8.int8_matmul(x, w_q, scale), iters=50)
         plain_ms = cuda_ms(lambda: i8.int8_matmul_plain(x, w_q, scale),
                            iters=20)
         # one library call on the same inputs: a bf16 matmul against a copy
         # dequantised ahead of time (twice the weight bytes; the scale
-        # folded into the copy, so not the kernel's rounding)
+        # folded into the copy, so not the kernel's rounding). A call of
+        # either from Python is the host's time: the two are timed in turns,
+        # five rounds, and the medians kept
         xb = x.to(torch.bfloat16)
         wb = (w_q.float() * scale).to(torch.bfloat16)
-        library_ms = cuda_ms(lambda: torch.matmul(xb, wb), iters=50)
-        # the C entry point alone, on the wrapper's own arguments: a wrapper
-        # call's time at these sizes is the host's, not the kernel's
-        lib = _build.load("int8_matmul", i8._SIGNATURES)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        kernel_us = 1e3 * cuda_ms(lambda: lib.int8_matmul(
-            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), got.data_ptr(),
-            B, K, N, stream), iters=200)
+        rounds = [(cuda_ms(lambda: i8.int8_matmul(x, w_q, scale,
+                                                  packed=packed), iters=100),
+                   cuda_ms(lambda: torch.matmul(xb, wb), iters=100))
+                  for _ in range(5)]
+        ms = sorted(r[0] for r in rounds)[2]
+        lib_b2b = sorted(r[1] for r in rounds)[2]
+        lib_graph = graph_ms(lambda: torch.matmul(xb, wb))
+        # the C entry point alone, on the wrapper's own arguments
+        lib = i8._lib()
+        res = torch.empty(B, N, device=dev)
+        entry = lambda: lib.int8_matmul(
+            x.data_ptr(), 0, packed.data_ptr(), scale.data_ptr(),
+            res.data_ptr(), B, K, N,
+            torch.cuda.current_stream(dev).cuda_stream)
+        entry_b2b = cuda_ms(entry, iters=200)
+        entry_graph = graph_ms(entry)
         nbytes = K * N + 4 * (B * K + N + B * N)
         bound_ms, bound_by = bound(nbytes, 2.0 * B * K * N, "bfloat16")
         print(f"int8 [{card}] B={B} K={K} N={N}: max |err| {err:.3e} "
-              f"({rel:.2e} of the largest value, limit {INT8_REL}); wrapper "
-              f"call {ms:.4f} ms (the C entry point alone {kernel_us:.2f} us), "
-              f"plain {plain_ms:.4f} ms, torch.matmul on a "
-              f"dequantised bf16 copy {library_ms:.4f} ms, bound "
+              f"({rel:.2e} of the largest value, limit {INT8_REL}); the C "
+              f"entry point {entry_graph * 1e3:.2f} us in a graph "
+              f"({bound_ms / entry_graph * 100:.0f}% of the bound), "
+              f"{entry_b2b * 1e3:.2f} us back to back; torch.matmul on a "
+              f"dequantised bf16 copy {lib_graph * 1e3:.2f} us in a graph, "
+              f"{lib_b2b * 1e3:.2f} us back to back; a wrapper call "
+              f"{ms * 1e3:.2f} us (medians of 5 rounds in turns with the "
+              f"library's); plain {plain_ms:.4f} ms; bound "
               f"{bound_ms:.5f} ms ({bound_by})")
-        out[(B, K)] = dict(max_abs_err=err, ms=ms, kernel_only_ms=kernel_us
-                           / 1e3, plain_ms=plain_ms, library_ms=library_ms,
+        out[(B, K)] = dict(max_abs_err=err, ms=entry_graph,
+                           entry_back_to_back_ms=entry_b2b, wrapper_ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_graph,
+                           library_back_to_back_ms=lib_b2b,
                            bound_ms=bound_ms, bound_by=bound_by)
     r = out[(1, 2560)]
     shapes = {f"B={B} K={K} N=4096": v for (B, K), v in out.items()}
@@ -904,6 +943,10 @@ def int8_phase(dev, card):
             "library_ms": r["library_ms"],
             "library": "torch.matmul on a bf16 copy dequantised ahead of "
                        "time", "timed_at": "B=1 K=2560 N=4096",
+            "timed_as": "device time per call in a CUDA graph of 100 calls "
+                        "(the C entry point; the library call likewise)",
+            "wrapper_ms": r["wrapper_ms"],
+            "entry_back_to_back_ms": r["entry_back_to_back_ms"],
             "shapes": shapes}
 
 
@@ -1067,15 +1110,34 @@ def utterance_phase(cfg, dev, card, seed):
           f"{lat['griffin_lim']:.1f} ms; launches {counts}")
 
     qmodel = tm.quantize_for_serving(model)
-    synth(qmodel, vocoder="none")                     # warm-up
+    synth(qmodel, vocoder="none")      # warm-up: packs, captures the graphs
     (qres, q_ms), c = _counted(
         "the quantized path",
         lambda: _timed(lambda: synth(qmodel, vocoder="none")),
-        ("encoder_lstm_fwd", "int8_matmul"))
+        ("encoder_lstm_fwd",))
     _check_result("the quantized path", qres, cfg, steps, audio=False)
+    # the decoder's chunks are graph replays, which the wrapper's count does
+    # not see: the int8 kernel's executions are counted on the device
+    names = profiled_kernels(lambda: synth(qmodel, vocoder="none"))
+    c["int8_matmul"] = sum(n == "int8_matmul_kernel" for n in names)
     if c["int8_matmul"] != 2 * steps:
-        fail(f"the quantized path launched the int8 kernel "
-             f"{c['int8_matmul']} times, not {2 * steps}")
+        fail(f"the quantized path ran the int8 kernel {c['int8_matmul']} "
+             f"times on the device, not {2 * steps}")
+    # the captured chunks against the same chunks run step by step
+    q_ids, q_len = (t.to(dev) for t in tinfer.encode_texts([UTTERANCE], cfg))
+    q_mem = tm.encode(qmodel, q_ids, q_len, cfg,
+                      compute_dtype=cfg.torch_compute_dtype)
+    q_run = lambda capture: tm.decode_autoregressive(
+        qmodel, q_mem, q_len, cfg, max_steps=steps,
+        compute_dtype=cfg.torch_compute_dtype, capture=capture)
+    captured, eager = q_run(True), q_run(False)
+    q_eager_ms = _timed(lambda: q_run(False))[1]
+    for f, a, b in zip(("mel", "gate", "align", "lengths"), captured, eager):
+        if not torch.equal(a, b):
+            fail(f"the quantized path's captured chunks differ from the "
+                 f"eager loop in {f} by {field_err(a, b)[0]} (tolerance 0: "
+                 f"the same kernels in the same order)")
+    synth(model, vocoder="none")       # warm-up: captures the bf16 graphs
     (pres, p_ms), _ = _counted(
         "the step-by-step path",
         lambda: _timed(lambda: synth(model, vocoder="none")),
@@ -1084,10 +1146,15 @@ def utterance_phase(cfg, dev, card, seed):
     counts["quantized"] = c
     print(f"quantized [{card}] bf16 B=1 max_steps={steps}: infer on "
           f"quantize_for_serving weights {q_ms:.1f} ms "
-          f"({frames / q_ms * 1e3:.1f} mel frames/s); the same step-by-step "
-          f"decoder on bf16 weights {p_ms:.1f} ms; int8 against bf16 "
-          f"weights, mel max |diff| {qgap[0]:.3e} ({qgap[1]:.2e} of the "
-          f"largest value; quantisation, not held); launches {c}")
+          f"({frames / q_ms * 1e3:.1f} mel frames/s) as captured chunks of "
+          f"64 steps; its decode {q_eager_ms:.1f} ms step by step (the same "
+          f"outputs, bit for bit); the same captured decoder on bf16 weights "
+          f"{p_ms:.1f} ms; "
+          f"int8 against bf16 weights, mel max |diff| {qgap[0]:.3e} "
+          f"({qgap[1]:.2e} of the largest value; quantisation, not held); "
+          f"launches {c} (int8_matmul: executions on the device)")
+    print(f"quantized profile [{card}] bf16 B=1 {steps} steps: "
+          + profile_kernels(lambda: synth(qmodel, vocoder="none"), top=8))
 
     # streamed, against the offline pass on the text padded to its bucket
     # as the streamer pads it
@@ -1496,10 +1563,12 @@ def scan_phase(model, cfg, dev, card):
 
 
 def encoder_train_phase(model, dev, card, enc):
-    """Row 4 at B=128, T=128, bf16 against its plain version, timed beside
-    cuDNN's bidirectional LSTM backward; row 3 at B=128 field by field
-    (ENC_FWD_REL), re-timed beside cuDNN at T 128, 48 and 32, and at the
-    quality gate's B=32 at T 48 and 32."""
+    """Row 4 (bf16) at B=128 x T 128 and 192 and the quality gate's B=32 x
+    T 32 and 48 against its plain version field by field (ENC_BWD_REL), one
+    cluster launch for the chain, the same bits in two runs; timed at B=128,
+    T=128 beside cuDNN's bidirectional LSTM backward. Row 3 at B=128 field
+    by field (ENC_FWD_REL), re-timed beside cuDNN at T 128, 48 and 32, and
+    at the quality gate's B=32 at T 48 and 32."""
     B, T = TRAIN_SHAPE["B"], TRAIN_SHAPE["T_in"]
     lstm = model.encoder.lstm
     N, H = lstm.input_size, lstm.hidden_size
@@ -1525,20 +1594,68 @@ def encoder_train_phase(model, dev, card, enc):
     fwd_ms = cuda_ms(lambda: el.bilstm_forward(*packed, xs, xsr), iters=5)
     fwd_plain = cuda_ms(lambda: el.bilstm_forward_plain(*packed, xs, xsr),
                         iters=1, warmup=0)
-    gf, gb, _, _, cf, cb = fwd
     wtf, wtb = (from_blocks(w).t().contiguous() for w in (packed.wf,
                                                           packed.wb))
-    dhf, dhb = (torch.randn(T, B, H, generator=g, device=dev) * 0.1
-                for _ in range(2))
-    args = (wtf, wtb, gf, gb, cf, cb, dhf, dhb)
-    got = el.bilstm_backward(*args)
-    want = el.bilstm_backward_plain(*args)
-    torch.cuda.synchronize()
     names = ("dgf", "dgb", "dxf", "dxb")
-    errs = check_fields("encoder backward", got, want, names, ENC_BWD_REL)
-    ms = cuda_ms(lambda: el.bilstm_backward(*args), iters=5)
+
+    def backward_case(Bc, Tc):
+        """Row 4's inputs at (Bc, Tc): the forward kernel's stacks of
+        seeded inputs, seeded cotangents of h."""
+        gc = torch.Generator(device=dev).manual_seed(Bc * 1000 + Tc)
+        x = torch.relu(torch.randn(Bc, Tc, N, generator=gc, device=dev))
+        lc = torch.randint(Tc // 2, Tc + 1, (Bc,), generator=gc, device=dev)
+        lc[0] = Tc
+        xr = _reverse_by_length(x, lc).to(bf16).contiguous()
+        gf, gb, _, _, cf, cb = el.bilstm_forward(
+            *packed, x.to(bf16).contiguous(), xr)
+        dhf, dhb = (torch.randn(Tc, Bc, H, generator=gc, device=dev) * 0.1
+                    for _ in range(2))
+        return (wtf, wtb, gf, gb, cf, cb, dhf, dhb)
+
+    # row 4 at bench.py's shape, the longest bucket and the quality gate's
+    # B=32 x T_in 32 and 48: one cluster launch for the chain, every field
+    # within ENC_BWD_REL, the same bits in two runs, a perturbed dx rejected
+    held = {}
+    for Bc, Tc in ((B, T), (B, 192), (32, 32), (32, 48)):
+        case = backward_case(Bc, Tc)
+        plan = el.backward_plan(Bc, N, H, bf16, dev)
+        launched = profiled_kernels(lambda: el.bilstm_backward(*case))
+        if plan[0] != "cluster" or launched.count(
+                "encoder_bwd_cluster_kernel") != 1 or \
+                "lstm_gates_bwd_kernel" in launched:
+            fail(f"encoder backward B={Bc} T={Tc}: plan {plan}, kernels "
+                 f"{sorted(set(launched))}")
+        got = el.bilstm_backward(*case)
+        again = el.bilstm_backward(*case)
+        want = el.bilstm_backward_plain(*case)
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, got, again):
+            if not torch.equal(a, b):
+                fail(f"encoder backward B={Bc} T={Tc}: {name} differs "
+                     f"between two runs")
+        errs_c = check_fields(f"encoder backward B={Bc} T={Tc}", got, want,
+                              names, ENC_BWD_REL)
+        must_reject("encoder backward dx x 1.05",
+                    (*got[:2], got[2] * 1.05, got[3]), want, names,
+                    ENC_BWD_REL)
+        held[f"B={Bc} T={Tc}"] = dict(
+            {k: r for k, (_, r) in errs_c.items()},
+            ms=cuda_ms(lambda: el.bilstm_backward(*case), iters=5),
+            clusters=plan[1], clusters_at_once=plan[2])
+        if (Bc, Tc) == (B, T):
+            args, errs = case, errs_c
+            ms = held[f"B={Bc} T={Tc}"]["ms"]
+        del case, got, again, want
     plain_ms = cuda_ms(lambda: el.bilstm_backward_plain(*args), iters=1,
                        warmup=0)
+    print(f"encoder backward [{card}] bf16, one cluster launch for the "
+          f"chain and one tensor-core dx product a direction, the same bits "
+          f"in two runs; largest |err| by field as a share of its largest "
+          f"|value| (limits {ENC_BWD_REL}) and ms: " + "; ".join(
+              f"{k}: " + ", ".join(f"{n} {v:.2e}" if n in names else
+                                   f"{n} {v}" if n != "ms" else
+                                   f"{v:.4f} ms" for n, v in r.items())
+              for k, r in held.items()))
     ref = _cudnn_bilstm(lstm, dev)
     with torch.no_grad():
         lib_fwd = cuda_ms(lambda: ref(xs), iters=10)
@@ -1549,6 +1666,9 @@ def encoder_train_phase(model, dev, card, enc):
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, gout,
                                                   retain_graph=True),
                       iters=10)
+    if ms >= lib_bwd:
+        print(f"encoder backward [{card}]: row 4 {ms:.4f} ms is not below "
+              f"cuDNN's {lib_bwd:.4f} ms at B={B} T={T}")
     K = N + H
     wsz = 2
     nbytes = (2 * 4 * H * K * wsz + 2 * T * B * (4 * H * wsz + 2 * H * 4)
@@ -1584,7 +1704,7 @@ def encoder_train_phase(model, dev, card, enc):
             "max_abs_err": max(e for e, _ in errs.values()),
             "tolerance": {"share_of_field_max": ENC_BWD_REL},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_bwd}
+            "bound_by": bound_by, "library_ms": lib_bwd, "shapes": held}
 
 
 TRAIN_KERNELS = {"encoder_lstm_fwd": el.bilstm_forward,
@@ -1732,11 +1852,13 @@ ENCODER_PARAMS = ("embedding.", "encoder.")
 
 
 def encoder_swap_phase(cfg, dev, card, seed):
-    """``loss_and_grads`` at bench.py's shape (bf16) three times on one
+    """``loss_and_grads`` at bench.py's shape (bf16) four times on one
     state and batch, each with its own generator of the same seed: twice
-    with row 3's kernel (their gap is the rest of the step's run-to-run
-    noise), once with ``bilstm_forward_plain`` in its place. The kernel's
-    step against the plain one within SWAP_REL_BF16."""
+    with the kernels (their gap is the rest of the step's run-to-run
+    noise), once with ``bilstm_forward_plain`` in row 3's place and once
+    with ``bilstm_backward_plain`` in row 4's. Each swapped step against
+    the kernels' step within SWAP_REL_BF16, limits set before the run.
+    Returns {"row 3": ..., "row 4": ...}."""
     B, T_in, T_out = (TRAIN_SHAPE[k] for k in ("B", "T_in", "T_out"))
     state = tstate.create_train_state(
         cfg, generator=torch.Generator().manual_seed(seed), device=dev)
@@ -1749,47 +1871,56 @@ def encoder_swap_phase(cfg, dev, card, seed):
         return float(loss.total), {k: g.cpu() for k, g in grads.items()
                                    if k.startswith(ENCODER_PARAMS)}
 
-    launches = el.bilstm_forward.launches
+    launches = (el.bilstm_forward.launches, el.bilstm_backward.launches)
     l_kernel, g_kernel = step()
     l_again, g_again = step()
-    if el.bilstm_forward.launches != launches + 2:
-        fail("the training step did not launch row 3's kernel")
-    kernel, plain0 = el.bilstm_forward, el.bilstm_forward_plain.calls
-    el.bilstm_forward = el.bilstm_forward_plain
-    try:
-        l_plain, g_plain = step()
-    finally:
-        el.bilstm_forward = kernel
-    if el.bilstm_forward_plain.calls != plain0 + 1:
-        fail("the swapped step did not run row 3's plain version")
-    loss_gap = abs(l_kernel - l_plain) / abs(l_plain)
-    gaps = _grad_gaps(g_kernel, g_plain)
+    if (el.bilstm_forward.launches, el.bilstm_backward.launches) != \
+            (launches[0] + 2, launches[1] + 2):
+        fail("the training step did not launch rows 3 and 4's kernels")
     noise = _grad_gaps(g_again, g_kernel)
-    name, worst_gap = next(iter(gaps.items()))
     nname, worst_noise = next(iter(noise.items()))
-    rss = float((g_kernel[name] - g_plain[name]).norm()
-                / g_plain[name].norm())
-    print(f"row 3 in the training step [{card}] bf16 B={B} T_in={T_in} "
-          f"T_out={T_out}: loss {l_kernel:.6f} with the kernel, {l_plain:.6f}"
-          f" with the plain version (share {loss_gap:.2e}, limit "
-          f"{SWAP_REL_BF16[0]:.2e}); {len(gaps)} encoder gradients, worst "
-          f"{name} {worst_gap:.2e} of its largest value (limit "
-          f"{SWAP_REL_BF16[1]:.2e}; its root-sum-square share {rss:.2e}, "
-          f"not held); the kernel's step run twice: loss share "
-          f"{abs(l_again - l_kernel) / abs(l_kernel):.2e}, worst gradient "
-          f"{nname} {worst_noise:.2e}")
-    if loss_gap > SWAP_REL_BF16[0]:
-        fail(f"training step: loss {l_kernel} with row 3, {l_plain} with its "
-             f"plain version")
-    if worst_gap > SWAP_REL_BF16[1]:
-        fail(f"training step: gradient of {name} with row 3 off by "
-             f"{worst_gap:.3e} of its largest value from the plain version's")
-    return {"loss_share": loss_gap, "worst_gradient": name,
-            "worst_gradient_share": worst_gap, "its_rss_share": rss,
-            "limits": list(SWAP_REL_BF16),
-            "kernel_twice": {"loss_share": abs(l_again - l_kernel)
-                             / abs(l_kernel), "worst_gradient_share":
-                             worst_noise}}
+    out, bad = {}, []
+    for row, attr in (("row 3", "bilstm_forward"),
+                      ("row 4", "bilstm_backward")):
+        kernel, plain = getattr(el, attr), getattr(el, attr + "_plain")
+        calls = plain.calls
+        setattr(el, attr, plain)
+        try:
+            l_plain, g_plain = step()
+        finally:
+            setattr(el, attr, kernel)
+        if plain.calls != calls + 1:
+            fail(f"the swapped step did not run {row}'s plain version")
+        loss_gap = abs(l_kernel - l_plain) / abs(l_plain)
+        gaps = _grad_gaps(g_kernel, g_plain)
+        name, worst_gap = next(iter(gaps.items()))
+        rss = float((g_kernel[name] - g_plain[name]).norm()
+                    / g_plain[name].norm())
+        print(f"{row} in the training step [{card}] bf16 B={B} T_in={T_in} "
+              f"T_out={T_out}: loss {l_kernel:.6f} with the kernels, "
+              f"{l_plain:.6f} with {attr}_plain (share {loss_gap:.2e}, "
+              f"limit {SWAP_REL_BF16[0]:.2e}); {len(gaps)} encoder "
+              f"gradients, worst {name} {worst_gap:.2e} of its largest value "
+              f"(limit {SWAP_REL_BF16[1]:.2e}; its root-sum-square share "
+              f"{rss:.2e}, not held); the kernels' step run twice: loss "
+              f"share {abs(l_again - l_kernel) / abs(l_kernel):.2e}, worst "
+              f"gradient {nname} {worst_noise:.2e}")
+        out[row] = {"loss_share": loss_gap, "worst_gradient": name,
+                    "worst_gradient_share": worst_gap, "its_rss_share": rss,
+                    "limits": list(SWAP_REL_BF16)}
+        if loss_gap > SWAP_REL_BF16[0]:
+            bad.append(f"loss {l_kernel} with {row}'s kernel, {l_plain} "
+                       f"with its plain version")
+        if worst_gap > SWAP_REL_BF16[1]:
+            bad.append(f"gradient of {name} with {row}'s kernel off by "
+                       f"{worst_gap:.3e} of its largest value from the "
+                       f"plain version's")
+    out["kernels_twice"] = {"loss_share": abs(l_again - l_kernel)
+                            / abs(l_kernel), "worst_gradient_share":
+                            worst_noise}
+    if bad:
+        fail("training step: " + "; ".join(bad))
+    return out
 
 
 def _grad_gaps(got, want):

@@ -1,6 +1,7 @@
 // Encoder BiLSTM: the forward of both directions of the text encoder's
-// BiLSTM over all T steps (serving and training), and below, run_bwd, its
-// backward chain (training).
+// BiLSTM over all T steps (serving and training), and below, its backward
+// chain (training): run_bwd_cluster at bf16 (one launch on clusters, as the
+// forward), run_bwd (two launches a step) for the rest.
 //
 // Replaces the TPU kernel tacotron2_tpu/kernels/encoder_lstm.py
 // _make_fwd_kernel (called by _fwd_call). Same contract as that kernel:
@@ -56,6 +57,7 @@
 
 #include "lstm_cell.cuh"
 #include "mma.cuh"
+#include "tc_product.cuh"
 
 #define ENC_UNITS 4      // hidden units per block
 #define ENC_THREADS 512  // 16 gate columns x 32 slices of K
@@ -505,7 +507,8 @@ static EncFwd encoder_args(const void* xf, const void* xr, const void* wf,
 // transposed weights column-tiled, kernels/lstm_layout.py to_col_tiles);
 // the product lands in a (B, N+H) scratch per direction, whose first N
 // columns are copied into dx[t] and whose last H columns the next step's
-// gate launch reads.
+// gate launch reads. fp32, and bf16 shapes the cluster design below does
+// not take, run this one.
 template <typename W>
 static cudaError_t run_bwd(const W* wtf, const W* wtb, const W* gf,
                            const W* gb, const float* cf, const float* cb,
@@ -546,12 +549,334 @@ static cudaError_t run_bwd(const W* wtf, const W* wtb, const W* gf,
   return cudaSuccess;
 }
 
+// ------------------------------------------ the cluster backward, bf16
+//
+// bf16 at H = 16 EC_CL (256) and N in 32s: the chain of both directions in
+// ONE launch on clusters of EC_CL blocks, row 3's design carried over. A
+// cluster owns one direction and one group of R = 16, 32 or 48 rows
+// (cluster_mt, as the forward); block r owns hidden units u0 = 16 r ..
+// u0 + 15 and all four of their gates (its 64 "gate columns" k = 16 q + i:
+// gate q of unit u0 + i). Per step t, from T - 1 down to 0:
+//   cell    each thread takes MT (row, unit) pairs, the same every step:
+//           dh = (the 16 blocks' partials of the carry, summed in rank
+//           order) + dh_in[t]; lstm_unit_bwd in registers (dc stays in a
+//           register for the whole chain) -> dg, rounded to bf16 (the TPU
+//           kernel's cast point) into the block's shared dgs [R][64];
+//   store   dg[t] of the block's columns to device memory, 16 bytes a store;
+//   product each block forms the partial carry of ALL H units from its own
+//           64 gate columns, swap-AB on mma.sync m16n8k16: the units are
+//           the m16 side (warp w: unit tiles w and w + 8, its slice of
+//           wh^T held in registers as A fragments for the whole chain), the
+//           rows the n8 side (B fragments by ldmatrix from dgs), fp32 sums;
+//   push    unit tile p of the partial goes to block p (the owner of those
+//           units) through distributed shared memory, 8 bytes a store, into
+//           recv[step parity][this block's rank][unit][row]: each block
+//           receives R x H fp32 a step (half of what sending dg would take)
+//           and sums the 16 partials in a fixed order;
+//   barrier barrier.cluster.arrive.release / wait.acquire, the step's only
+//           synchronisation between blocks.
+// Each step's g, c and dh_in rows of the block's units are staged by
+// cp.async one step ahead (g and dh_in double-buffered, c in a ring of
+// three: a step reads c_t and c_{t-1}). dx = dg @ wi^T leaves the chain: one
+// product over all T*B rows per direction after it, on the tensor cores
+// (tc_product.cuh), bf16 operands and fp32 sums as the TPU kernel's body.
+// No float atomics, every sum in a fixed order: two runs give the same bits.
+
+#define EB_UNITS 16     // units per block (H / EC_CL)
+#define EB_THREADS 256  // 8 warps: unit tiles w and w + 8 of the product
+#define EB_GPAD 8       // bf16 padding of a staged g / dgs row
+#define EB_FPAD 4       // fp32 padding of a staged c / dh_in row
+
+struct EncBwd {
+  const bf16 *wtf, *wtb;  // [wi ; wh]^T column-tiled, (ceil((N+H)/32), 4H, 32)
+  const bf16 *gf, *gb;    // (T, B, 4H)
+  const float *cf, *cb;   // (T, B, H)
+  const float *dhf, *dhb; // (T, B, H)
+  bf16 *dgf, *dgb;        // (T, B, 4H) out
+  int B, T, N, H, NG;     // NG row groups of 16 MT rows per direction
+};
+
+// Shared memory of encoder_bwd_cluster_kernel<MT>, in bytes.
+static size_t bwd_cluster_smem(int MT) {
+  const size_t R = 16 * MT;
+  return sizeof(float) * (2 * EC_CL * EB_UNITS * (R + 8) +
+                          5 * R * (EB_UNITS + EB_FPAD)) +
+         sizeof(bf16) * 3 * R * (4 * EB_UNITS + EB_GPAD);
+}
+
+// 8 bytes into block `rank` of the cluster at the shared address its own
+// copy of `local` has.
+__device__ __forceinline__ void st_cluster8(const float* local, unsigned rank,
+                                            float a, float b) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_addr(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(a), "f"(b)
+               : "memory");
+}
+
+// Launched in clusters of EC_CL blocks (x), 2 NG clusters: cluster 2 rg + d
+// runs direction d for rows 16 MT rg .. 16 MT (rg + 1) - 1. Shared memory:
+// recv [2][EC_CL][EB_UNITS][R + 8] fp32, the partials of the carry by step
+// parity, source rank, unit and row; cs [3][R][EB_UNITS + EB_FPAD] fp32, c
+// of the block's units by step mod 3; ds [2][R][..] fp32, dh_in by step
+// parity; gs [2][R][64 + EB_GPAD] bf16, g of the block's gate columns by
+// step parity (column 16 q + i: gate q of unit u0 + i); dgs [R][64 +
+// EB_GPAD] bf16, the step's dg.
+template <int MT>
+__global__ void __launch_bounds__(EB_THREADS, 1)
+encoder_bwd_cluster_kernel(EncBwd a) {
+  extern __shared__ __align__(16) unsigned char eb_raw[];
+  constexpr int R = 16 * MT, LR = R + 8, LF = EB_UNITS + EB_FPAD;
+  constexpr int LG = 4 * EB_UNITS + EB_GPAD;
+  const int B = a.B, T = a.T, N = a.N, H = a.H, G = 4 * H;
+  float* recv = reinterpret_cast<float*>(eb_raw);
+  float* cs = recv + 2 * EC_CL * EB_UNITS * LR;
+  float* ds = cs + 3 * R * LF;
+  bf16* gs = reinterpret_cast<bf16*>(ds + 2 * R * LF);
+  bf16* dgs = gs + 2 * R * LG;
+  const unsigned rank = cluster_rank();
+  const int cl = (int)cluster_index();
+  const int dir = cl & 1, row0 = (cl >> 1) * R;
+  const bf16* wt = dir ? a.wtb : a.wtf;
+  const bf16* g = dir ? a.gb : a.gf;
+  const float* c = dir ? a.cb : a.cf;
+  const float* dh_in = dir ? a.dhb : a.dhf;
+  bf16* dg_out = dir ? a.dgb : a.dgf;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int u0 = (int)rank * EB_UNITS;
+
+  // the warp's A fragments: unit tiles mt = warp + 8 m, k16 step s = gate s
+  // (k = 16 s + i: gate s of unit u0 + i); A[unit][k] = wh[gate][unit] =
+  // wt[s H + u0 + i][N + unit], from the column tiles
+  uint32_t af[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int sq = 0; sq < 4; ++sq)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int unit = 16 * (warp + 8 * m) + gq + 8 * (r & 1);
+        const int col = N + unit;
+        const int gate = sq * H + u0 + 2 * t4 + 8 * (r >> 1);
+        const bf16* p = wt + ((size_t)(col >> 5) * G + gate) * 32 + (col & 31);
+        __nv_bfloat162 v;
+        v.x = p[0];
+        v.y = p[32];   // the next gate row of the same tile
+        af[m][sq][r] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+
+  // g[s] and dh_in[s] of the group's rows into slot s & 1; c[s] into slot
+  // s % 3 (zeros past B)
+  auto stage_gd = [&](int s) {
+    bf16* gdst = gs + (size_t)(s & 1) * R * LG;
+    float* ddst = ds + (size_t)(s & 1) * R * LF;
+    for (int i = tid; i < R * 12; i += EB_THREADS) {
+      const int r = i / 12, p = i % 12, row = row0 + r;
+      const bool in = row < B;
+      const size_t o = (size_t)s * B + (in ? row : 0);
+      if (p < 8)   // gate p / 2, units u0 + 8 (p & 1) ..
+        cp_async16(gdst + (size_t)r * LG + p * 8,
+                   g + o * G + (p >> 1) * H + u0 + (p & 1) * 8, in ? 16 : 0);
+      else
+        cp_async16(ddst + (size_t)r * LF + (p - 8) * 4,
+                   dh_in + o * H + u0 + (p - 8) * 4, in ? 16 : 0);
+    }
+  };
+  auto stage_c = [&](int s) {
+    float* cdst = cs + (size_t)(s % 3) * R * LF;
+    for (int i = tid; i < R * 4; i += EB_THREADS) {
+      const int r = i / 4, p = i % 4, row = row0 + r;
+      const bool in = row < B;
+      cp_async16(cdst + (size_t)r * LF + p * 4,
+                 c + ((size_t)s * B + (in ? row : 0)) * H + u0 + p * 4,
+                 in ? 16 : 0);
+    }
+  };
+  stage_gd(T - 1);
+  stage_c(T - 1);
+  if (T >= 2) stage_c(T - 2);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  cluster_arrive();   // every block of the cluster has started before any
+  cluster_wait();     // writes into another's shared memory
+
+  float dc[MT];
+#pragma unroll
+  for (int k = 0; k < MT; ++k) dc[k] = 0.0f;
+  for (int t = T - 1; t >= 0; --t) {
+    const int par = t & 1;
+    // the cell backward of the thread's (row, unit) pairs: pair block
+    // b = warp + 8 k, rows 8 (b >> 2) .. + 7, units 4 (b & 3) .. + 3
+#pragma unroll
+    for (int k = 0; k < MT; ++k) {
+      const int b = warp + 8 * k;
+      const int r = 8 * (b >> 2) + gq, ul = 4 * (b & 3) + t4;
+      float carry = 0.0f;
+      if (t < T - 1) {
+        const float* src = recv + ((size_t)par * EC_CL * EB_UNITS + ul) * LR
+                           + r;
+#pragma unroll
+        for (int p = 0; p < EC_CL; ++p) carry += src[(size_t)p * EB_UNITS * LR];
+      }
+      const float dh = carry + ds[((size_t)par * R + r) * LF + ul];
+      const bf16* gr = gs + ((size_t)par * R + r) * LG + ul;
+      const float cn = cs[((size_t)(t % 3) * R + r) * LF + ul];
+      const float cp = t ? cs[((size_t)((t + 2) % 3) * R + r) * LF + ul] : 0.0f;
+      float dgv[4];
+      dc[k] = lstm_unit_bwd(__bfloat162float(gr[0]),
+                            __bfloat162float(gr[EB_UNITS]),
+                            __bfloat162float(gr[2 * EB_UNITS]),
+                            __bfloat162float(gr[3 * EB_UNITS]), cp, cn, dh,
+                            dc[k], dgv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        dgs[(size_t)r * LG + q * EB_UNITS + ul] = __float2bfloat16(dgv[q]);
+    }
+    __syncthreads();   // dgs holds the step's dg
+    for (int i = tid; i < R * 8; i += EB_THREADS) {
+      const int r = i >> 3, p = i & 7, row = row0 + r;
+      if (row < B)
+        *reinterpret_cast<uint4*>(dg_out + ((size_t)t * B + row) * G +
+                                  (p >> 1) * H + u0 + (p & 1) * 8) =
+            *reinterpret_cast<const uint4*>(dgs + (size_t)r * LG + p * 8);
+    }
+    if (t >= 1) stage_gd(t - 1);
+    if (t >= 2) stage_c(t - 2);
+    cp_async_commit();
+    if (t >= 1) {
+      // partial carry (all H units x R rows) from the block's 64 columns
+      float acc[2][2 * MT][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.0f;
+      const int r8 = lane & 7, mi = lane >> 3;
+#pragma unroll
+      for (int sq = 0; sq < 4; ++sq)
+#pragma unroll
+        for (int jp = 0; jp < MT; ++jp) {
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, dgs + (size_t)(16 * jp + r8 + (mi >> 1) * 8) * LG +
+                               16 * sq + (mi & 1) * 8);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mma_bf16(acc[m][2 * jp], af[m][sq], bfr);
+            mma_bf16(acc[m][2 * jp + 1], af[m][sq], bfr + 2);
+          }
+        }
+      // unit tile warp + 8 m belongs to block warp + 8 m: accumulator e of
+      // n8 tile j is unit g + 8 (e >> 1) of the tile, row 8 j + 2 t4 + (e & 1)
+      const int npar = (t - 1) & 1;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const unsigned peer = (unsigned)(warp + 8 * m);
+#pragma unroll
+        for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float* dst =
+                recv + (((size_t)npar * EC_CL + rank) * EB_UNITS + gq +
+                        8 * hh) * LR + 8 * j + 2 * t4;
+            st_cluster8(dst, peer, acc[m][j][2 * hh], acc[m][j][2 * hh + 1]);
+          }
+      }
+    }
+    cp_async_wait<0>();
+    cluster_arrive();  // this block's pushes and staged rows are visible
+    cluster_wait();    // every block's partials of step t have landed
+  }
+}
+
+// Whether the cluster backward takes these shapes: bf16, H = 16 EC_CL,
+// N a multiple of 32, every pointer on a 16-byte boundary, the shared
+// memory within what a block may use.
+static bool bwd_cluster_ok(int bf16, int B, int N, int H, const void* const* p,
+                           int np) {
+  if (!bf16 || B < 1 || H != EB_UNITS * EC_CL || N < 32 || N % 32) return false;
+  for (int i = 0; i < np; ++i)
+    if ((uintptr_t)p[i] % 16) return false;
+  int dev, optin;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  return bwd_cluster_smem(cluster_mt(B)) <= (size_t)optin;
+}
+
+template <int MT>
+static cudaError_t bwd_cluster_config(const EncBwd& a, cudaLaunchConfig_t* cfg,
+                                      cudaLaunchAttribute* attr) {
+  auto kern = encoder_bwd_cluster_kernel<MT>;
+  const size_t smem = bwd_cluster_smem(MT);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(2 * a.NG * EC_CL);
+  cfg->blockDim = dim3(EB_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = EC_CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int MT>
+static cudaError_t run_bwd_cluster_mt(const EncBwd& a, cudaStream_t s) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = bwd_cluster_config<MT>(a, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  cfg.stream = s;
+  err = cudaLaunchKernelEx(&cfg, encoder_bwd_cluster_kernel<MT>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The chain in one cluster launch, then dx = dg @ wi^T per direction on the
+// tensor cores: X = dg (T B, 4H), W = the first N columns of the column
+// tiles, one K slice (at T B = 128 x 128 the 8 x 128 tiles fill the card
+// many times over).
+static cudaError_t run_bwd_cluster(const EncBwd& a, float* dxf, float* dxb,
+                                   cudaStream_t s) {
+  cudaError_t err;
+  switch (cluster_mt(a.B)) {
+    case 1: err = run_bwd_cluster_mt<1>(a, s); break;
+    case 2: err = run_bwd_cluster_mt<2>(a, s); break;
+    default: err = run_bwd_cluster_mt<3>(a, s);
+  }
+  if (err != cudaSuccess) return err;
+  err = tc_product_prepare();
+  if (err != cudaSuccess) return err;
+  const int M = a.T * a.B, G = 4 * a.H;
+  err = tc_product(a.dgf, G, M, G, a.wtf, a.N, 1,
+                   TcOut{dxf, nullptr, nullptr, nullptr, 0, 0}, s);
+  if (err != cudaSuccess) return err;
+  return tc_product(a.dgb, G, M, G, a.wtb, a.N, 1,
+                    TcOut{dxb, nullptr, nullptr, nullptr, 0, 0}, s);
+}
+
 extern "C" {
 
-// Backward chain of both directions (see run_bwd). wt*: ([wi ; wh]^T)
-// column-tiled, (ceil((N+H)/32), 4H, 32); g*: (T, B, 4H); c*, dh*:
-// (T, B, H) fp32; out dg* (T, B, 4H), dx* (T, B, N) fp32. dc* (B, H) must
-// hold zeros; scr* are (B, N+H) fp32 scratch. Returns cudaError_t.
+// Backward chain of both directions: the cluster kernel and the dx
+// products where bwd_cluster_ok takes the shapes (run_bwd_cluster), else
+// two launches a step (run_bwd). wt*: ([wi ; wh]^T) column-tiled,
+// (ceil((N+H)/32), 4H, 32); g*: (T, B, 4H); c*, dh*: (T, B, H) fp32; out
+// dg* (T, B, 4H), dx* (T, B, N) fp32. dc* (B, H) must hold zeros; scr* are
+// (B, N+H) fp32 scratch (both for run_bwd only). Returns cudaError_t.
 int encoder_lstm_bwd(int bf16, const void* wtf, const void* wtb,
                      const void* gf, const void* gb, const void* cf,
                      const void* cb, const void* dhf, const void* dhb,
@@ -559,6 +884,16 @@ int encoder_lstm_bwd(int bf16, const void* wtf, const void* wtb,
                      void* dcb, void* scrf, void* scrb, int B, int T, int N,
                      int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const void* ptrs[] = {wtf, wtb, gf, gb, cf, cb, dhf, dhb, dgf, dgb};
+  if (bwd_cluster_ok(bf16, B, N, H, ptrs, 10)) {
+    const int R = 16 * cluster_mt(B);
+    typedef __nv_bfloat16 BF;   // `bf16` is the flag here
+    const EncBwd a{(const BF*)wtf, (const BF*)wtb, (const BF*)gf,
+                   (const BF*)gb, (const float*)cf, (const float*)cb,
+                   (const float*)dhf, (const float*)dhb, (BF*)dgf, (BF*)dgb,
+                   B, T, N, H, (B + R - 1) / R};
+    return (int)run_bwd_cluster(a, (float*)dxf, (float*)dxb, s);
+  }
 #define T2_ARGS(W)                                                        \
   (const W*)wtf, (const W*)wtb, (const W*)gf, (const W*)gb,               \
       (const float*)cf, (const float*)cb, (const float*)dhf,              \
@@ -624,6 +959,41 @@ int encoder_lstm_fwd_plan(int bf16, int B, int N, int H, int* needed,
     default:
       err = cluster_config<3>(a, &cfg, &attr);
       kern = (const void*)encoder_cluster_kernel<3>;
+  }
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(active, kern, &cfg);
+  if (err != cudaSuccess) return -(int)err;
+  *needed = 2 * a.NG;
+  return 1;
+}
+
+// Which design encoder_lstm_bwd takes at these shapes (inputs assumed on
+// 16-byte boundaries): 1 for the cluster kernel, with *needed its clusters
+// and *active how many the device holds at once, 0 for two launches a step;
+// < 0 a device query failed (the cudaError_t, negated).
+int encoder_lstm_bwd_plan(int bf16, int B, int N, int H, int* needed,
+                          int* active) {
+  const void* al[1] = {nullptr};   // any 16-byte aligned address
+  if (!bwd_cluster_ok(bf16, B, N, H, al, 1)) return 0;
+  const int R = 16 * cluster_mt(B);
+  EncBwd a{};
+  a.B = B, a.T = 1, a.N = N, a.H = H, a.NG = (B + R - 1) / R;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* kern;
+  cudaError_t err;
+  switch (cluster_mt(B)) {
+    case 1:
+      err = bwd_cluster_config<1>(a, &cfg, &attr);
+      kern = (const void*)encoder_bwd_cluster_kernel<1>;
+      break;
+    case 2:
+      err = bwd_cluster_config<2>(a, &cfg, &attr);
+      kern = (const void*)encoder_bwd_cluster_kernel<2>;
+      break;
+    default:
+      err = bwd_cluster_config<3>(a, &cfg, &attr);
+      kern = (const void*)encoder_bwd_cluster_kernel<3>;
   }
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(active, kern, &cfg);

@@ -14,7 +14,10 @@ cell state; the gate and h stacks come back in the compute dtype.
 tensors; nothing else picks between them. At bf16 (H 128 or 256, N in
 16s) the forward is one launch on thread-block clusters that keep the
 weights in shared memory for the whole scan (``forward_plan`` says whether
-a shape takes it); fp32 and other shapes take one launch a step.
+a shape takes it); at bf16, H = 256 and N in 32s the backward chain is one
+such launch too, its dx then one tensor-core product per direction
+(``backward_plan``); fp32 and other shapes take one launch (the backward
+two) a step.
 ``BiLSTMScans`` is the autograd Function around the two: its backward runs
 the data-gradient chain through ``bilstm_backward`` and takes the weight
 gradients outside it, as single products over T*B (the TPU package's
@@ -100,7 +103,23 @@ bilstm_forward_plain.calls = 0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"encoder_lstm_fwd": [_I] + [_P] * 12 + [_I] * 4 + [_P],
                "encoder_lstm_bwd": [_I] + [_P] * 16 + [_I] * 4 + [_P],
-               "encoder_lstm_fwd_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2}
+               "encoder_lstm_fwd_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2,
+               "encoder_lstm_bwd_plan": [_I] * 4 + [ctypes.POINTER(_I)] * 2}
+
+
+def _plan(entry: str, B: int, N: int, H: int, dtype: torch.dtype,
+          device: torch.device) -> Tuple[str, int, int]:
+    lib = _build.load("encoder_lstm", _SIGNATURES)
+    needed, active = _I(0), _I(0)
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(int(dtype == torch.bfloat16), B, N, H,
+                                   ctypes.byref(needed),
+                                   ctypes.byref(active))
+    if code < 0:
+        _build.check(lib, -code, entry)
+    if code == 0:
+        return "per-step", 0, 0
+    return "cluster", needed.value, active.value
 
 
 def forward_plan(B: int, N: int, H: int, dtype: torch.dtype,
@@ -108,17 +127,15 @@ def forward_plan(B: int, N: int, H: int, dtype: torch.dtype,
     """The forward kernel's design at these shapes, as its C entry point
     picks it: ("cluster", clusters the launch needs, clusters the device
     holds at once) or ("per-step", 0, 0). Builds the kernel if needed."""
-    lib = _build.load("encoder_lstm", _SIGNATURES)
-    needed, active = _I(0), _I(0)
-    with torch.cuda.device(device):
-        code = lib.encoder_lstm_fwd_plan(int(dtype == torch.bfloat16), B, N,
-                                         H, ctypes.byref(needed),
-                                         ctypes.byref(active))
-    if code < 0:
-        _build.check(lib, -code, "encoder_lstm_fwd_plan")
-    if code == 0:
-        return "per-step", 0, 0
-    return "cluster", needed.value, active.value
+    return _plan("encoder_lstm_fwd_plan", B, N, H, dtype, device)
+
+
+def backward_plan(B: int, N: int, H: int, dtype: torch.dtype,
+                  device: torch.device) -> Tuple[str, int, int]:
+    """The backward chain's design at these shapes, as ``forward_plan``:
+    ("cluster", needed, active) for the one-launch chain (bf16, H = 256, N
+    in 32s), ("per-step", 0, 0) for two launches a step."""
+    return _plan("encoder_lstm_bwd_plan", B, N, H, dtype, device)
 
 
 def _check_kernel_inputs(wf, bf, wb, bb, xs, xsr) -> None:

@@ -30,7 +30,10 @@ Fidelity notes (traps from the reference, all preserved):
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import threading
+import weakref
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -484,7 +487,8 @@ def init_stream_carry(memory: torch.Tensor,
 def _step_frame(model, carry: StreamCarry, memory, processed_memory, mask,
                 cfg, generator, compute_dtype):
     """One step of ``decode_chunk``/``decode_autoregressive``: outputs
-    masked for rows already finished, then the latch."""
+    masked for rows already finished, then the latch. ``carry.t`` is an int
+    or, inside a captured chunk, a 0-dim int32 tensor on the device."""
     deterministic = not cfg.prenet_dropout_at_inference or generator is None
     prenet_out = prenet_apply(model, carry.prev_mel, generator,
                               deterministic=deterministic,
@@ -497,11 +501,25 @@ def _step_frame(model, carry: StreamCarry, memory, processed_memory, mask,
     gate_out = torch.where(fin, MASKED_GATE_ENERGY, gate)
     align_out = torch.where(fin[:, None], 0.0, align)
     # reference semantics: the crossing frame IS emitted, then stop
-    lengths = torch.where(fin, carry.lengths,
-                          torch.full_like(carry.lengths, carry.t + 1))
+    t1 = (torch.full_like(carry.lengths, carry.t + 1)
+          if isinstance(carry.t, int) else carry.t + 1)
+    lengths = torch.where(fin, carry.lengths, t1)
     finished = fin | (torch.sigmoid(gate) > cfg.gate_threshold)
     new = StreamCarry(carry.t + 1, state, mel.float(), finished, lengths)
     return new, (mel_out, gate_out, align_out)
+
+
+def _steps(model, carry: StreamCarry, memory, processed_memory, mask, cfg,
+           generator, compute_dtype, steps: int):
+    """``steps`` plain decoder steps from ``carry``: (the new carry,
+    time-major (mel (steps, B, n_mels*r), gate (steps, B), align (steps, B,
+    T_in)))."""
+    outs = []
+    for _ in range(steps):
+        carry, out = _step_frame(model, carry, memory, processed_memory,
+                                 mask, cfg, generator, compute_dtype)
+        outs.append(out)
+    return carry, tuple(torch.stack(x) for x in zip(*outs))
 
 
 def _ungroup(mels, gates, aligns, B, cfg):
@@ -514,16 +532,169 @@ def _ungroup(mels, gates, aligns, B, cfg):
     return mel, gate, align
 
 
+# ---------------------------------------------- the step loop as CUDA graphs
+
+class _StaticIO:
+    """The buffers a captured chunk reads and writes: the attention inputs
+    and the carry (the step index as a 0-dim int32 tensor), and a generator
+    of the chunk's own for the prenet's dropout, registered with its graphs;
+    the caller's generator state goes into it before a replay and comes back
+    after. One decode at a time holds them (``held``)."""
+
+    def __init__(self, memory, processed_memory, mask, cfg, dropout: bool):
+        dev = memory.device
+        self.memory = memory.clone()
+        self.processed = processed_memory.clone()
+        self.mask = mask.clone() if mask is not None else None
+        c = init_stream_carry(memory, cfg)
+        self.carry = c._replace(t=torch.zeros((), dtype=torch.int32,
+                                              device=dev))
+        self.gen = torch.Generator(device=dev) if dropout else None
+        self.graphs: Dict[int, "_CapturedSteps"] = {}
+        self.pool = torch.cuda.graph_pool_handle()
+        self.lock = threading.Lock()
+        self.done = torch.cuda.Event()
+
+    @contextlib.contextmanager
+    def held(self):
+        """The buffers for one decode, from loading its inputs to copying
+        out its outputs: another thread waits for the lock, and another
+        stream for the work queued while it was held."""
+        with self.lock:
+            stream = torch.cuda.current_stream(self.memory.device)
+            stream.wait_event(self.done)
+            try:
+                yield
+            finally:
+                self.done.record(stream)
+
+    def tensors(self, carry: StreamCarry) -> Tuple[torch.Tensor, ...]:
+        return (carry.t, *carry.state, carry.prev_mel, carry.finished,
+                carry.lengths)
+
+    def store(self, carry: StreamCarry) -> None:
+        """Copy ``carry`` (an int ``t`` or a tensor) into the buffers."""
+        if isinstance(carry.t, int):
+            self.carry.t.fill_(carry.t)
+            carry = carry._replace(t=self.carry.t)
+        for dst, src in zip(self.tensors(self.carry), self.tensors(carry)):
+            if src is not dst:
+                dst.copy_(src)
+
+    def load(self, memory, processed_memory, mask) -> None:
+        self.memory.copy_(memory)
+        self.processed.copy_(processed_memory)
+        if mask is not None:
+            self.mask.copy_(mask)
+
+
+class _CapturedSteps:
+    """``steps`` decoder steps of one model captured as one CUDA graph over
+    a ``_StaticIO``: a replay reads the carry from the buffers, writes each
+    step's masked outputs into ``out`` (time-major) and the new carry back
+    into the buffers, so that the next replay goes on from it. Warmed up
+    once on a side stream first (cuBLAS, cuDNN and the kernels' libraries
+    load outside the capture); the buffers' carry is kept across that."""
+
+    def __init__(self, model, cfg, io: _StaticIO, steps: int, compute_dtype):
+        self.io = io
+        run = lambda: self._run(model, cfg, steps, compute_dtype)
+        saved = [t.clone() for t in io.tensors(io.carry)]
+        side = torch.cuda.Stream(io.memory.device)
+        side.wait_stream(torch.cuda.current_stream(io.memory.device))
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream(io.memory.device).wait_stream(side)
+        for dst, src in zip(io.tensors(io.carry), saved):
+            dst.copy_(src)
+        self.graph = torch.cuda.CUDAGraph()
+        if io.gen is not None:
+            self.graph.register_generator_state(io.gen)
+        with torch.cuda.graph(self.graph, pool=io.pool,
+                              capture_error_mode="thread_local"):
+            self.out = run()
+
+    def _run(self, model, cfg, steps, compute_dtype):
+        io = self.io
+        carry, out = _steps(model, io.carry, io.memory, io.processed,
+                            io.mask, cfg, io.gen, compute_dtype, steps)
+        io.store(carry)
+        return out
+
+    def replay(self, generator: Optional[torch.Generator]):
+        gen = self.io.gen
+        if gen is not None:
+            gen.set_state(generator.get_state())
+        self.graph.replay()
+        if gen is not None:
+            generator.set_state(gen.get_state())
+        return self.out
+
+
+# per model: {(shapes and dtypes of the inputs, dropout, the addresses of
+# the decoder's weights): _StaticIO}; _LOCK guards it and serialises
+# captures
+_CAPTURED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_LOCK = threading.Lock()
+
+
+def _decoder_weights_key(model: Tacotron2) -> Tuple[int, ...]:
+    """The addresses of every tensor a decoder step reads (the int8 cells'
+    packed copies made first): a graph holds them, so a model whose
+    weights moved or were repacked needs new graphs."""
+    dec = model.decoder
+    for cell in (dec.attention_rnn, dec.decoder_rnn):
+        if isinstance(cell, QuantizedLSTMCell):
+            cell.packed()
+    return tuple(t.data_ptr() for t in (*dec.parameters(), *dec.buffers()))
+
+
+def _static_io(model, memory, processed_memory, mask, cfg, generator,
+               compute_dtype) -> _StaticIO:
+    dropout = generator is not None and cfg.prenet_dropout_at_inference
+    key = (tuple(memory.shape), memory.dtype, processed_memory.dtype,
+           mask is not None, compute_dtype, dropout, repr(cfg),
+           _decoder_weights_key(model))
+    with _LOCK:
+        per_model = _CAPTURED.setdefault(model, {})
+        io = per_model.get(key)
+        if io is None:
+            for stale in [k for k in per_model if k[-1] != key[-1]]:
+                del per_model[stale]
+            io = per_model[key] = _StaticIO(memory, processed_memory, mask,
+                                            cfg, dropout)
+    return io
+
+
+def _captured(model, io: _StaticIO, cfg, steps: int, compute_dtype
+              ) -> _CapturedSteps:
+    """The graph of ``steps`` steps over ``io`` (held by the caller)."""
+    graph = io.graphs.get(steps)
+    if graph is None:
+        with _LOCK:
+            graph = io.graphs[steps] = _CapturedSteps(model, cfg, io, steps,
+                                                      compute_dtype)
+    return graph
+
+
 def decode_autoregressive(model: Tacotron2, memory: torch.Tensor,
                           memory_lengths: Optional[torch.Tensor],
                           cfg: Tacotron2Config, *,
                           generator: Optional[torch.Generator] = None,
                           max_steps: Optional[int] = None,
-                          compute_dtype=None):
-    """Batched autoregressive inference with per-row gate stopping
-    (plain PyTorch, one step at a time). Stops when every row has latched
-    or at ``max_steps``; outputs are (B, max_steps*r, ...) with mel 0,
-    gate 1e3 and align 0 past the last step taken, plus lengths in frames.
+                          compute_dtype=None, chunk_steps: int = 64,
+                          capture: bool = True):
+    """Batched autoregressive inference with per-row gate stopping, in
+    chunks of ``chunk_steps`` plain decoder steps (the last chunk only the
+    steps left before ``max_steps``). The latch is read once a chunk: the
+    loop stops after the chunk in which every row has latched, or at
+    ``max_steps``; rows that finish inside a chunk are masked as each step
+    masks them, so outputs are (B, max_steps*r, ...) with mel 0, gate 1e3
+    and align 0 past each row's last step, plus lengths in frames, whatever
+    the chunk length. On a card each chunk is the replay of a CUDA graph,
+    captured once per model, input shapes and chunk length;
+    ``capture=False`` runs the same chunks step by step there too (the
+    comparison the graphs are held to). On the CPU they run step by step.
     """
     B, T_in, _ = memory.shape
     t_max = max_steps or cfg.max_decoder_steps
@@ -535,31 +706,63 @@ def decode_autoregressive(model: Tacotron2, memory: torch.Tensor,
     mels = torch.zeros(t_max, B, n, device=dev)
     gates = torch.full((t_max, B), MASKED_GATE_ENERGY, device=dev)
     aligns = torch.zeros(t_max, B, T_in, device=dev)
+    graphs = memory.is_cuda and capture
     carry = init_stream_carry(memory, cfg)
-    while carry.t < t_max and not bool(carry.finished.all()):
-        t = carry.t
-        carry, (mels[t], gates[t], aligns[t]) = _step_frame(
-            model, carry, memory, processed, mask, cfg, generator,
-            compute_dtype)
+    held = contextlib.nullcontext()
+    if graphs:
+        io = _static_io(model, memory, processed, mask, cfg, generator,
+                        compute_dtype)
+        held = io.held()
+    with held:
+        if graphs:
+            io.load(memory, processed, mask)
+            io.store(carry)
+            carry = io.carry
+        t = 0
+        while t < t_max and not (t and bool(carry.finished.all())):
+            cs = min(chunk_steps, t_max - t)
+            if graphs:
+                out = _captured(model, io, cfg, cs, compute_dtype).replay(
+                    generator)
+            else:
+                carry, out = _steps(model, carry, memory, processed, mask,
+                                    cfg, generator, compute_dtype, cs)
+            for buf, o in zip((mels, gates, aligns), out):
+                buf[t:t + cs].copy_(o)
+            t += cs
+        lengths = carry.lengths * cfg.n_frames_per_step
     mel, gate, align = _ungroup(mels, gates, aligns, B, cfg)
-    return mel, gate, align, carry.lengths * cfg.n_frames_per_step
+    return mel, gate, align, lengths
 
 
 def decode_chunk(model: Tacotron2, carry: StreamCarry, memory: torch.Tensor,
                  processed_memory: torch.Tensor,
                  mask: Optional[torch.Tensor], cfg: Tacotron2Config, *,
                  chunk_steps: int, generator: Optional[torch.Generator] = None,
-                 compute_dtype=None):
+                 compute_dtype=None, capture: bool = True):
     """Run ``chunk_steps`` plain decoder steps from ``carry``. Outputs are
     masked for finished rows and per-frame: mel (B, cs*r, n_mels), gate
-    (B, cs*r), align (B, cs*r, T_in)."""
-    outs = []
-    for _ in range(chunk_steps):
-        carry, out = _step_frame(model, carry, memory, processed_memory,
-                                 mask, cfg, generator, compute_dtype)
-        outs.append(out)
-    mels, gates, aligns = (torch.stack(x) for x in zip(*outs))
-    return carry, _ungroup(mels, gates, aligns, memory.shape[0], cfg)
+    (B, cs*r), align (B, cs*r, T_in). On a card the chunk is the replay of
+    a CUDA graph (as in ``decode_autoregressive``; ``capture=False`` runs
+    it step by step)."""
+    if memory.is_cuda and capture:
+        io = _static_io(model, memory, processed_memory, mask, cfg,
+                        generator, compute_dtype)
+        with io.held():
+            io.load(memory, processed_memory, mask)
+            io.store(carry)
+            out = _captured(model, io, cfg, chunk_steps,
+                            compute_dtype).replay(generator)
+            out = tuple(o.clone() for o in out)
+            c = io.carry
+            new = StreamCarry(int(carry.t) + chunk_steps,
+                              DecoderState(*(x.clone() for x in c.state)),
+                              c.prev_mel.clone(), c.finished.clone(),
+                              c.lengths.clone())
+    else:
+        new, out = _steps(model, carry, memory, processed_memory, mask, cfg,
+                          generator, compute_dtype, chunk_steps)
+    return new, _ungroup(*out, memory.shape[0], cfg)
 
 
 # ======================================================================
@@ -631,8 +834,10 @@ def infer(model: Tacotron2, text: torch.Tensor, text_lengths: torch.Tensor,
           compute_dtype=None,
           device: Union[str, torch.device] = "cuda") -> InferenceResult:
     """Batched text -> mel through the plain step-by-step decoder
-    (reference Tacotron2.inference, model.py:517-529, made batch-safe).
-    The encoder BiLSTM still runs through its kernel on a CUDA device."""
+    (reference Tacotron2.inference, model.py:517-529, made batch-safe), in
+    chunks of steps, each a CUDA graph's replay on a card
+    (``decode_autoregressive``). The encoder BiLSTM still runs through its
+    kernel on a CUDA device."""
     text, text_lengths = _on_device(model, text, text_lengths, device)
     memory = encode(model, text, text_lengths, cfg,
                     compute_dtype=compute_dtype)

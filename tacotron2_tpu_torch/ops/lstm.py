@@ -28,7 +28,8 @@ import torch
 from torch import nn
 
 from tacotron2_tpu_torch.kernels import encoder_lstm
-from tacotron2_tpu_torch.kernels.int8_matmul import int8_matmul, quantize_int8
+from tacotron2_tpu_torch.kernels.int8_matmul import (int8_matmul, pack_int8,
+                                                     quantize_int8)
 from tacotron2_tpu_torch.ops.layers import dense, length_mask
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (h, c)
@@ -46,11 +47,14 @@ class QuantizedLSTMWeights(NamedTuple):
     w_q: torch.Tensor    # (in + H, 4H) int8, [w_ih ; w_hh] transposed
     scale: torch.Tensor  # (4H,) fp32 per output channel
     bias: torch.Tensor   # (4H,) fp32, b_ih + b_hh
+    packed: Optional[torch.Tensor] = None  # pack_int8(w_q), on a card
 
 
 class QuantizedLSTMCell(nn.Module):
     """Holds a quantized cell's ``w_q``, ``scale`` and ``bias`` as buffers
-    (zeros until filled by ``from_weights`` or ``load_state_dict``)."""
+    (zeros until filled by ``from_weights`` or ``load_state_dict``), and the
+    kernel's packed copy of ``w_q`` as a non-persistent buffer, made by
+    ``packed()`` on a card and again whenever ``w_q`` moves or changes."""
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__()
@@ -60,13 +64,23 @@ class QuantizedLSTMCell(nn.Module):
                                                 dtype=torch.int8))
         self.register_buffer("scale", torch.ones(G))
         self.register_buffer("bias", torch.zeros(G))
+        self.register_buffer("w_packed", None, persistent=False)
+        self._packed_of = None
+
+    def packed(self) -> torch.Tensor:
+        """``pack_int8(w_q)``, packed once per value of ``w_q``."""
+        key = (self.w_q.data_ptr(), self.w_q._version)
+        if self.w_packed is None or self._packed_of != key:
+            self.w_packed = pack_int8(self.w_q)
+            self._packed_of = key
+        return self.w_packed
 
     @classmethod
     def from_weights(cls, p: LSTMWeights) -> "QuantizedLSTMCell":
         cell = cls(p.w_ih.shape[1], p.w_hh.shape[1])
         q = quantize_lstm_params(p)
         dev = p.w_ih.device
-        cell.w_q, cell.scale, cell.bias = (x.to(dev) for x in q)
+        cell.w_q, cell.scale, cell.bias = (x.to(dev) for x in q[:3])
         return cell
 
 
@@ -75,7 +89,9 @@ def lstm_weights(module: nn.Module, suffix: str = ""):
     direction of an ``nn.LSTM`` (suffix "_l0" or "_l0_reverse"); the
     ``QuantizedLSTMWeights`` of a ``QuantizedLSTMCell``."""
     if isinstance(module, QuantizedLSTMCell):
-        return QuantizedLSTMWeights(module.w_q, module.scale, module.bias)
+        return QuantizedLSTMWeights(
+            module.w_q, module.scale, module.bias,
+            module.packed() if module.w_q.is_cuda else None)
     return LSTMWeights(*(getattr(module, f"{n}{suffix}") for n in
                          ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))
 
@@ -97,7 +113,7 @@ def _lstm_cell_int8(p: QuantizedLSTMWeights, x: torch.Tensor,
     fp32 in the concatenation and the bias is added in fp32."""
     h, c = state
     xs = torch.cat([x.float(), h], dim=-1)
-    gates = int8_matmul(xs, p.w_q, p.scale) + p.bias
+    gates = int8_matmul(xs, p.w_q, p.scale, packed=p.packed) + p.bias
     return lstm_apply_gates(gates, c)
 
 

@@ -367,3 +367,151 @@ def test_probe_variants_find_their_markers():
         assert chunk["traced"]["persistent_chunk.cuh"] != \
             chunk["idle"]["persistent_chunk.cuh"]
         assert "pc_trace_read" in chunk["traced"][f"{source}.cu"]
+
+
+def _emulate_cluster_backward(wt, g, c, dh):
+    """encoder_bwd_cluster_kernel for one direction, block by block and
+    lane by lane: clusters of 16 blocks over row groups of 16, 32 or 48;
+    block r owns units 16 r .. 16 r + 15 and their four gates; each thread
+    its (row, unit) pairs (pair block warp + 8 k); the A fragments of wh^T
+    read from the column tiles; the B fragments at ldmatrix's addresses in
+    dgs; each warp's unit tiles w and w + 8 pushed into those blocks' recv
+    of the next parity, 8 bytes (two rows) a store; the partials summed in
+    rank order. Returns (dg (T, B, 4H) as stored, the times each element was
+    stored)."""
+    from tacotron2_tpu_torch.kernels.lstm_layout import to_col_tiles
+    T, B, G = g.shape
+    H = G // 4
+    N = wt.shape[1] - H
+    assert H == 16 * EC_CL
+    MT = 1 if B <= 16 else 2 if B <= 96 else 3
+    R, LR = 16 * MT, 16 * MT + 8
+    wct = to_col_tiles(wt).float().numpy()
+    g, c, dh = g.float().numpy(), c.numpy(), dh.numpy()
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))
+    bf = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(
+        torch.bfloat16).float().numpy()
+    lanes = np.arange(32)
+    gq, t4 = lanes >> 2, lanes & 3
+    out = np.zeros((T, B, G), np.float32)
+    writes = np.zeros((T, B, G), np.int32)
+    for row0 in range(0, B, R):
+        # A[rank][warp][m][gate s]: (16 units, 16 k) from each lane's
+        # registers r (two bf16 each)
+        A = np.zeros((EC_CL, 8, 2, 4, 16, 16), np.float32)
+        for rank in range(EC_CL):
+            u0 = 16 * rank
+            for w in range(8):
+                for m in range(2):
+                    for s in range(4):
+                        for r in range(4):
+                            for e in range(2):
+                                unit = 16 * (w + 8 * m) + gq + 8 * (r & 1)
+                                col = N + unit
+                                gate = s * H + u0 + 2 * t4 + 8 * (r >> 1) + e
+                                A[rank, w, m, s, gq + 8 * (r & 1),
+                                  2 * t4 + 8 * (r >> 1) + e] = \
+                                    wct[col >> 5, gate, col & 31]
+        recv = np.zeros((EC_CL, 2, EC_CL, 16, LR), np.float32)
+        dc = np.zeros((EC_CL, 8, MT, 32), np.float32)
+        for t in reversed(range(T)):
+            par, npar = t & 1, (t - 1) & 1
+            dgs = np.zeros((EC_CL, R, 64 + 8), np.float32)
+            for rank in range(EC_CL):
+                u0 = 16 * rank
+                for w in range(8):
+                    for k in range(MT):
+                        b = w + 8 * k
+                        r = 8 * (b >> 2) + gq
+                        ul = 4 * (b & 3) + t4
+                        rows = row0 + r
+                        ok = rows < B
+                        carry = np.zeros(32, np.float32)
+                        if t < T - 1:
+                            for p in range(EC_CL):
+                                carry += recv[rank, par, p, ul, r]
+                        rr = np.where(ok, rows, 0)
+                        dhv = np.where(ok, dh[t, rr, u0 + ul], 0)
+                        dhv = (carry + dhv).astype(np.float32)
+                        gv = [np.where(ok, g[t, rr, q * H + u0 + ul], 0)
+                              for q in range(4)]
+                        cn = np.where(ok, c[t, rr, u0 + ul], 0)
+                        cp = np.where(ok, c[t - 1, rr, u0 + ul], 0) if t \
+                            else np.zeros(32, np.float32)
+                        i, f, o = sig(gv[0]), sig(gv[1]), sig(gv[3])
+                        gg, tc = np.tanh(gv[2]), np.tanh(cn)
+                        dcv = dc[rank, w, k] + dhv * o * (1 - tc * tc)
+                        dgv = [dcv * gg * i * (1 - i), dcv * cp * f * (1 - f),
+                               dcv * i * (1 - gg * gg), dhv * tc * o * (1 - o)]
+                        dc[rank, w, k] = dcv * f
+                        for q in range(4):
+                            dgs[rank, r, q * 16 + ul] = bf(dgv[q])
+                # the 16-byte stores of dg[t]
+                for i in range(R * 8):
+                    r, p = i >> 3, i & 7
+                    if row0 + r < B:
+                        sl = slice((p >> 1) * H + u0 + (p & 1) * 8,
+                                   (p >> 1) * H + u0 + (p & 1) * 8 + 8)
+                        out[t, row0 + r, sl] = dgs[rank, r, p * 8:p * 8 + 8]
+                        writes[t, row0 + r, sl] += 1
+            if t == 0:
+                continue
+            r8, mi = lanes & 7, lanes >> 3
+            for rank in range(EC_CL):
+                acc = np.zeros((8, 2, 2 * MT, 16, 8), np.float32)
+                for s in range(4):
+                    for jp in range(MT):
+                        # ldmatrix x4: lane L gives the address of row r8 of
+                        # matrix mi; lane (g, q) gets (row g, cols 2q, 2q+1)
+                        # of each matrix
+                        mats = [dgs[rank, 16 * jp + np.arange(8) + (i >> 1) * 8,
+                                    16 * s + (i & 1) * 8:16 * s + (i & 1) * 8
+                                    + 8] for i in range(4)]
+                        bmat = np.zeros((2, 16, 8), np.float32)
+                        for nt in range(2):
+                            for e in range(2):
+                                bmat[nt, 2 * t4 + e, gq] = \
+                                    mats[2 * nt][gq, 2 * t4 + e]
+                                bmat[nt, 8 + 2 * t4 + e, gq] = \
+                                    mats[2 * nt + 1][gq, 2 * t4 + e]
+                        for w in range(8):
+                            for m in range(2):
+                                for nt in range(2):
+                                    acc[w, m, 2 * jp + nt] += \
+                                        A[rank, w, m, s] @ bmat[nt]
+                for w in range(8):
+                    for m in range(2):
+                        peer = w + 8 * m
+                        for j in range(2 * MT):
+                            for hh in range(2):
+                                for e in range(2):
+                                    recv[peer, npar, rank, gq + 8 * hh,
+                                         8 * j + 2 * t4 + e] = \
+                                        acc[w, m, j, gq + 8 * hh, 2 * t4 + e]
+    return out, writes
+
+
+@pytest.mark.parametrize("B,T", [(3, 3), (20, 2), (100, 2)])
+def test_cluster_backward_index_map(B, T):
+    """Row 4's bf16 cluster kernel emulated (row groups of 16, 32 and 48,
+    the pair ownership, the A fragments from the column tiles, the B
+    fragments at ldmatrix's addresses, the exchange of the carry's partials
+    by unit tile and step parity, the rank-order sums, the 16-byte stores
+    of dg) against the plain version: every element of dg stored exactly
+    once, within the bf16 tolerance (sums in another order); dx, the
+    product after the chain, from the emulated dg against the plain dx."""
+    rng = np.random.RandomState(B + T)
+    bf16 = torch.bfloat16
+    Hd, N = 16 * EC_CL, 32
+    mk = lambda *s: torch.from_numpy((rng.rand(*s) - 0.5).astype(np.float32))
+    wt = mk(4 * Hd, N + Hd).mul(0.2).to(bf16)
+    g = mk(T, B, 4 * Hd).mul(2).to(bf16)
+    c = mk(T, B, Hd)
+    dh = mk(T, B, Hd)
+    want = el.bilstm_backward_plain(wt, wt, g, g, c, c, dh, dh)
+    dg, writes = _emulate_cluster_backward(wt, g, c, dh)
+    np.testing.assert_array_equal(writes, 1)
+    close(dg, want[0].float().numpy())
+    dx = torch.from_numpy(dg).to(bf16).float() @ wt.float()[:, :N]
+    np.testing.assert_allclose(dx.numpy(), want[2].numpy(), atol=1e-2,
+                               rtol=1e-2)

@@ -185,3 +185,70 @@ def test_vocoder_runner_pads_to_a_bucket_and_trims(world, n, step,
     padded[0, :n] = mel
     full = th.generator(world.voc, torch.from_numpy(padded), world.thg)
     np.testing.assert_array_equal(got, full[0, :n * 16].numpy())
+
+
+def _first_latches(gates, thr):
+    """Each row's first step whose sigmoid(gate) exceeds thr, or None."""
+    hit = 1.0 / (1.0 + np.exp(-gates)) > thr
+    return [int(np.argmax(h)) if h.any() else None for h in hit]
+
+
+@pytest.mark.parametrize("weights", ["int8", "bf16"])
+def test_chunked_decode_matches_jax(world, weights):
+    """``decode_autoregressive`` in chunks of 4 steps, max_steps 11 (no
+    multiple of 4), on the quantized model (fp32 compute) and on bf16
+    compute, against the JAX package's ``decode_autoregressive`` (one
+    step at a time) from the same memory, with a gate threshold at which
+    one row latches inside a chunk and the loop stops inside a later one:
+    the steps the chunks run past the last latch write the buffers' own
+    fill values, so every output equals the JAX loop's, lengths exactly.
+    Tolerance 1e-4 at fp32, the plain decode's; at bf16 1e-2, the bf16
+    decoder chunk's (tests/test_torch_decoder_batch.py)."""
+    B, T_in, steps, cs = 2, 7, 11, 4
+    rng = np.random.RandomState(8)
+    memory = rng.randn(B, T_in, 32).astype(np.float32) * 0.5
+    lengths = np.array([7, 5], np.int32)
+    params, model = world.params, world.model
+    jcd, tcd, atol = None, None, 1e-4
+    if weights == "int8":
+        params = jm.quantize_for_serving(params)
+        model = tm.quantize_for_serving(model)
+    else:
+        jcd, tcd, atol = jnp.bfloat16, torch.bfloat16, 1e-2
+
+    def jax_decode(thr):
+        return jm.decode_autoregressive(
+            params, jnp.asarray(memory), jnp.asarray(lengths),
+            JaxConfig(**{**DIMS, "gate_threshold": thr}), max_steps=steps,
+            compute_dtype=jcd)
+
+    free = np.asarray(jax_decode(1.0)[1])   # no row ever latches
+    # a threshold at which every row latches, one of them inside a chunk,
+    # the last at a step that ends no chunk and before max_steps
+    probs = np.sort(1.0 / (1.0 + np.exp(-free.ravel())))
+    chosen = None
+    for lo, hi in zip(probs[:-1], probs[1:]):
+        thr = float(lo + hi) / 2
+        first = _first_latches(free, thr)
+        if None in first:
+            continue
+        if any(f % cs != cs - 1 for f in first) and \
+                max(first) % cs != cs - 1 and max(first) < steps - 2 \
+                and len(set(first)) > 1:
+            chosen = thr
+            break
+    assert chosen is not None, "no threshold latches the rows mid-chunk"
+    want = jax_decode(chosen)
+    tcfg = Tacotron2Config(**{**DIMS, "gate_threshold": chosen})
+    got = tm.decode_autoregressive(
+        model, torch.from_numpy(memory), torch.from_numpy(lengths), tcfg,
+        max_steps=steps, compute_dtype=tcd, chunk_steps=cs)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert int(got[3].max()) < steps
+    for name, g, w in zip(("mel", "gate", "align"), got[:3], want[:3]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=atol,
+                                   err_msg=name)
+    # past the last latch, the fill values themselves
+    done = int(got[3].max())
+    assert (got[0][:, done:] == 0).all() and (got[2][:, done:] == 0).all()
+    assert (got[1][:, done:] == tm.MASKED_GATE_ENERGY).all()

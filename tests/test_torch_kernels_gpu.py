@@ -477,7 +477,7 @@ def test_int8_kernel_matches_plain(cuda, B, K, N, xdtype):
     w = torch.randn(K, N, generator=g, device=cuda) * 0.05
     w_q, scale = (t.to(cuda) for t in i8.quantize_int8(w))
     launches = i8.int8_matmul.launches
-    got = i8.int8_matmul(x, w_q, scale)
+    got = i8.int8_matmul(x, w_q, scale, packed=i8.pack_int8(w_q))
     assert i8.int8_matmul.launches == launches + 1
     want = i8.int8_matmul_plain(x, w_q, scale)
     torch.cuda.synchronize()
@@ -915,3 +915,263 @@ def test_decoder_step_off_range_bf16_takes_the_per_step_kernels(cuda):
     want = ds.decoder_step_chunk_plain(*args, **kw)
     torch.cuda.synchronize()
     assert_chunks_close(got, want, STEP_REL[torch.bfloat16])
+
+
+# ------------------------------------------- row 7 at more rows, row 4 as one
+# cluster launch, and the step-by-step decoder as captured chunks
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(1792, 4096), (2560, 4096), (257, 40),
+                                 (100, 83), (33, 7)])
+@pytest.mark.parametrize("B", [1, 3, 8, 13, 19])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_rows_and_ragged_edges(cuda, B, K, N, xdtype):
+    """Row 7 against its plain version at 1 to 19 rows (one launch: rows
+    past 8 are more n8 tiles of the same weights), the decoder cells'
+    shapes and edges ragged in K and N, x in fp32 and bf16 read as they
+    are, with the packed copy and an out= buffer: within INT8_REL, the same
+    bits in two runs, one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(B * 7 + K)
+    x = torch.randn(B, K, generator=g, device=cuda).to(xdtype)
+    w = torch.randn(K, N, generator=g, device=cuda) * 0.05
+    w_q, scale = (t.to(cuda) for t in i8.quantize_int8(w))
+    packed = i8.pack_int8(w_q)
+    out = torch.full((B, N), float("nan"), device=cuda)
+    launches = i8.int8_matmul.launches
+    got = i8.int8_matmul(x, w_q, scale, packed=packed, out=out)
+    again = i8.int8_matmul(x, w_q, scale, packed=packed)
+    assert i8.int8_matmul.launches == launches + 2
+    assert got.data_ptr() == out.data_ptr()
+    names = kernel_names(lambda: i8.int8_matmul(x, w_q, scale,
+                                                packed=packed))
+    assert sum("int8_matmul_kernel" in n for n in names) == 1, names
+    want = i8.int8_matmul_plain(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale_ = float(want.abs().max())
+    assert float((got - want).abs().max()) <= INT8_REL * scale_
+    bad = got.clone()
+    bad[:, N // 2] *= 1.05
+    assert float((bad - want).abs().max()) > INT8_REL * scale_
+
+
+@pytest.mark.gpu
+def test_int8_kernel_rejects_a_wrong_pack_or_out(cuda):
+    w_q, scale = (t.to(cuda) for t in i8.quantize_int8(torch.ones(64, 40)))
+    x = torch.ones(2, 64, device=cuda)
+    with pytest.raises(ValueError, match="pack_int8"):
+        i8.int8_matmul(x, w_q, scale, packed=i8.pack_int8(w_q[:32]))
+    with pytest.raises(ValueError, match="pack_int8"):
+        i8.int8_matmul(x, w_q, scale)
+    with pytest.raises(ValueError, match="out must be"):
+        i8.int8_matmul(x, w_q, scale, packed=i8.pack_int8(w_q),
+                       out=torch.empty(2, 41, device=cuda))
+
+
+# Row 4, kernel against its plain version: each field's largest |err| as a
+# share of its largest |value| (chip_smoke.py's ENC_BWD_REL, the same table).
+ENC_BWD_FIELD_REL = dict(dgf=5e-2, dgb=3e-2, dxf=9e-3, dxb=2e-2)
+
+
+def encoder_backward_case(device, B, T):
+    """Row 4's inputs at full width, bf16: the forward kernel's stacks of
+    seeded weights and inputs, and seeded cotangents of h."""
+    wf, bf, wb, bb, xs, xsr = encoder_case(device, torch.bfloat16, B, T)
+    gf, gb, _, _, cf, cb = el.bilstm_forward(wf, bf, wb, bb, xs, xsr)
+    from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks
+    wtf, wtb = (from_blocks(w).t().contiguous() for w in (wf, wb))
+    g = torch.Generator(device=device).manual_seed(B + T)
+    dhf, dhb = (torch.randn(T, B, 256, generator=g, device=device) * 0.1
+                for _ in range(2))
+    return wtf, wtb, gf, gb, cf, cb, dhf, dhb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [32, 48, 128, 192])
+@pytest.mark.parametrize("B", [1, 8, 13, 32, 128])
+def test_encoder_backward_cluster_kernel_matches_plain(cuda, B, T):
+    """Row 4 at bf16 and full width (N=512, H=256): the chain as one launch
+    of the cluster kernel (no per-step launch) and dx as one tensor-core
+    product a direction; every field within ENC_BWD_FIELD_REL of the plain
+    version; dg and dx the same bits in two runs."""
+    args = encoder_backward_case(cuda, B, T)
+    run = lambda: el.bilstm_backward(*args)
+    names = kernel_names(run)
+    assert sum("encoder_bwd_cluster_kernel" in n for n in names) == 1, names
+    assert sum("tc_product_kernel" in n for n in names) == 2, names
+    assert not any("lstm_gates_bwd_kernel" in n for n in names), set(names)
+    assert el.backward_plan(B, 512, 256, torch.bfloat16, cuda)[0] == \
+        "cluster"
+    got, again = run(), run()
+    names4 = ("dgf", "dgb", "dxf", "dxb")
+    for name, a, b in zip(names4, got, again):
+        assert torch.equal(a, b), name
+    want = el.bilstm_backward_plain(*args)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, names4)
+    for name in names4:
+        assert errs[name] <= ENC_BWD_FIELD_REL[name], errs
+
+
+@pytest.mark.gpu
+def test_encoder_backward_fp32_takes_the_per_step_kernels(cuda):
+    """fp32 at full width keeps two launches a step, and matches the plain
+    version as before."""
+    B, T = 8, 12
+    wf, bf, wb, bb, xs, xsr = encoder_case(cuda, torch.float32, B, T)
+    gf, gb, _, _, cf, cb = el.bilstm_forward_plain(wf, bf, wb, bb, xs, xsr)
+    from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks
+    wtf, wtb = (from_blocks(w).t().contiguous() for w in (wf, wb))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dhf, dhb = (torch.randn(T, B, 256, generator=g, device=cuda) * 0.1
+                for _ in range(2))
+    args = (wtf, wtb, gf, gb, cf, cb, dhf, dhb)
+    names = kernel_names(lambda: el.bilstm_backward(*args))
+    assert sum("lstm_gates_bwd_kernel" in n for n in names) == T, names
+    assert not any("encoder_bwd_cluster_kernel" in n for n in names)
+    assert el.backward_plan(B, 512, 256, torch.float32, cuda)[0] == \
+        "per-step"
+    got = el.bilstm_backward(*args)
+    want = el.bilstm_backward_plain(*args)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, want, ("dgf", "dgb", "dxf", "dxb"))
+    assert max(errs.values()) <= ENC_BWD_REL[torch.float32], errs
+
+
+def decode_case(device, weights, B):
+    """A narrow model (CFG) on the card, int8 or bf16 weights, B texts of
+    ragged lengths: (model, text, lengths, compute dtype)."""
+    model = tm.Tacotron2(CFG.replace(gate_threshold=0.99),
+                         torch.Generator().manual_seed(3)).to(device)
+    if weights == "int8":
+        model = tm.quantize_for_serving(model)
+    g = torch.Generator().manual_seed(B)
+    text = torch.randint(1, 40, (B, 23), generator=g).to(device)
+    lengths = torch.randint(10, 24, (B,), generator=g).int().to(device)
+    lengths[0] = 23
+    return model, text, lengths, torch.bfloat16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("weights", ["int8", "bf16"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_captured_decode_equals_the_eager_loop(cuda, B, weights, dropout):
+    """``decode_autoregressive`` as CUDA graphs of 16-step chunks (and a
+    9-step remainder: max_steps 41) against the same chunks run step by
+    step: equal outputs.
+    With a generator the prenet's dropout fires (the output differs from
+    the deterministic one) and one seed gives the same output twice."""
+    model, text, lengths, cd = decode_case(cuda, weights, B)
+    cfg = model.cfg
+    memory = tm.encode(model, text, lengths, cfg, compute_dtype=cd)
+
+    def run(capture, seed=11, dropout=dropout):
+        gen = (torch.Generator(device=cuda).manual_seed(seed) if dropout
+               else None)
+        return tm.decode_autoregressive(
+            model, memory, lengths, cfg, max_steps=41, compute_dtype=cd,
+            chunk_steps=16, generator=gen, capture=capture)
+
+    got, again, want = run(True), run(True), run(False)
+    for f, a, b, c in zip(("mel", "gate", "align", "lengths"), got, want,
+                          again):
+        assert torch.equal(a, b), f
+        assert torch.equal(a, c), f
+    if dropout:
+        assert not torch.equal(got[0], run(True, dropout=False)[0])
+        assert not torch.equal(got[0], run(True, seed=12)[0])
+
+
+@pytest.mark.gpu
+def test_captured_decode_chunk_resumes(cuda):
+    """``decode_chunk`` replays its graph from a carry handed in: two
+    chunks of 8 steps equal one eager run of 16, and the graphs do not
+    launch the int8 kernel through its wrapper (the device counts it)."""
+    model, text, lengths, cd = decode_case(cuda, "int8", 1)
+    cfg = model.cfg
+    memory = tm.encode(model, text, lengths, cfg, compute_dtype=cd)
+    proc = tm.processed_memory_of(model, memory, cd)
+    mask = torch.arange(memory.shape[1], device=cuda)[None] < lengths[:, None]
+    c = tm.init_stream_carry(memory, cfg)
+    outs = []
+    for i in range(2):
+        launches = i8.int8_matmul.launches
+        c, out = tm.decode_chunk(model, c, memory, proc, mask, cfg,
+                                 chunk_steps=8, compute_dtype=cd)
+        outs.append(out)
+    assert i8.int8_matmul.launches == launches   # a replay: no wrapper call
+    e, want = tm.decode_chunk(model, tm.init_stream_carry(memory, cfg),
+                              memory, proc, mask, cfg, chunk_steps=16,
+                              compute_dtype=cd, capture=False)
+    for i in range(3):
+        assert torch.equal(torch.cat([o[i] for o in outs], dim=1), want[i])
+    assert c.t == e.t == 16
+    assert torch.equal(c.state.att_h, e.state.att_h)
+    assert torch.equal(c.lengths, e.lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams", [False, True])
+def test_captured_decode_from_two_threads(cuda, streams):
+    """Two threads decode one model at one shape at the same time, so
+    through the same graphs and buffers (each on a stream of its own, or
+    both on the default stream): every result equals the eager loop's."""
+    from concurrent.futures import ThreadPoolExecutor
+    model, text, lengths, cd = decode_case(cuda, "int8", 1)
+    cfg = model.cfg
+    memory = tm.encode(model, text, lengths, cfg, compute_dtype=cd)
+
+    def run(capture=True):
+        return tm.decode_autoregressive(
+            model, memory, lengths, cfg, max_steps=41, compute_dtype=cd,
+            chunk_steps=16, capture=capture)
+
+    want = run(capture=False)
+    run()   # the graphs captured before the threads start
+    torch.cuda.synchronize()
+
+    def worker(_):
+        stream = torch.cuda.Stream() if streams else None
+        with torch.cuda.stream(stream):
+            outs = [run() for _ in range(6)]
+        torch.cuda.synchronize()
+        return outs
+
+    with ThreadPoolExecutor(2) as pool:
+        results = [o for outs in pool.map(worker, range(2)) for o in outs]
+    for got in results:
+        for f, a, b in zip(("mel", "gate", "align", "lengths"), got, want):
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.gpu
+def test_quantized_serving_captures_in_its_worker(cuda):
+    """``BatchingSynthesizer`` on int8 weights decodes on its worker thread
+    through graphs captured there: the result equals the worker's padded
+    batch decoded step by step on this thread."""
+    from tacotron2_tpu_torch.data.bucketing import text_bucket
+    from tacotron2_tpu_torch.serve import BatchingSynthesizer
+    from tacotron2_tpu_torch.text import text_to_sequence
+    cfg = CFG.replace(n_symbols=148, gate_threshold=0.99,
+                      prenet_dropout_at_inference=False)
+    model = tm.quantize_for_serving(
+        tm.Tacotron2(cfg, torch.Generator().manual_seed(3)))
+    synth = BatchingSynthesizer(model.state_dict(), cfg, max_batch=2,
+                                max_steps=20, device=cuda)
+    try:
+        mel, _, n = synth.submit("abc").result(timeout=600)
+    finally:
+        synth.close()
+    ids = text_to_sequence("abc", cfg.text_cleaners)
+    text = torch.zeros(2, text_bucket(len(ids), cfg.text_buckets),
+                       dtype=torch.long, device=cuda)
+    text[0, :len(ids)] = torch.tensor(ids)
+    lengths = torch.tensor([len(ids), 1], dtype=torch.int32, device=cuda)
+    qm = synth.model
+    memory = tm.encode(qm, text, lengths, cfg)
+    out = tm.decode_autoregressive(qm, memory, lengths, cfg, max_steps=20,
+                                   capture=False)
+    want = tm._finish(qm, *out, cfg, None)
+    assert n == int(want.mel_lengths[0])
+    assert torch.equal(torch.from_numpy(mel), want.mel_postnet[0, :n].cpu())
