@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's serving paths and its training step on one CUDA card and
-check them.
+"""Drive the port's serving paths, its training step and its trainer on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -49,8 +49,10 @@ on failure:
    card against the CPU plain path;
 8. the training kernels at bench.py's shape (B=128, T_in=128, bf16): the
    decoder forward scan and backward chain against their plain versions
-   over 64 steps (also at T_in 64 and 192) and 512 steps, the backward's
-   accumulators bit-identical between two runs, the encoder BiLSTM forward
+   over 64 steps (also at T_in 64 and 192) and 512 steps, and at the
+   quality gate's B=32 x T_in 32 and 48 over 128 steps and T_in 48 over
+   256, the backward's accumulators bit-identical between two runs, perturbed
+   outputs rejected, the encoder BiLSTM forward
    at B=128 and its backward (one cluster launch for the chain) at B=128 x
    T 128 and 192 and B=32 x T 32 and 48, each field within its limit,
    perturbed outputs rejected, the backward bit-identical in two runs; the
@@ -61,7 +63,19 @@ on failure:
    step's loss and encoder gradients with the kernels against the same step
    with row 3's plain version swapped in, and with row 4's
    (SWAP_REL_BF16);
-10. one fp32 training step on the card against the CPU plain versions, then
+10. training from a filelist: a 128-utterance tone corpus, ``Trainer.fit``
+    for 3 epochs at full width (bf16, dropout on, text buckets 32 and 48)
+    with checkpoints and validation; every training kernel must launch, no
+    plain version run, and both text buckets be met; a Trainer resumed
+    from the last checkpoint holds the same state bit for bit and two more
+    steps of it equal two more of the first (a gap must stay within twice
+    that of the same two steps run twice from the checkpoint);
+    ``synthesize`` from the restored model through both decoders; rows 3
+    and 6 on the restored weights at the gate's input ("we like jax", B=1,
+    T_in 11) against their plain versions, row 6 with a latching gate;
+    the fit's step time beside
+    ``train_step`` on a resident batch, its wait on prefetch and a profile;
+11. one fp32 training step on the card against the CPU plain versions, then
     with cuDNN's convolutions, and each convolution against fp64.
 
 The second-to-last line is the ``kernels`` JSON object (times, bounds,
@@ -73,10 +87,15 @@ from __future__ import annotations
 import functools
 import importlib
 import json
+import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -639,8 +658,13 @@ def profiled_kernels(run):
 def profile_kernels(run, top: int) -> str:
     """torch.profiler over one run(): the device window, the kernels' busy
     time, the idle share and the ``top`` kernels by total time."""
-    kernels = _device_events(run, [ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+    return summarize_kernels(_device_events(
+        run, [ProfilerActivity.CPU, ProfilerActivity.CUDA]), top)
+
+
+def summarize_kernels(kernels, top: int) -> str:
+    """The device window of a profiler's device events, their busy time,
+    the idle share and the ``top`` kernels by total time."""
     start = min(e.time_range.start for e in kernels)
     end = max(e.time_range.end for e in kernels)
     busy = sum(e.time_range.end - e.time_range.start for e in kernels)
@@ -1464,30 +1488,42 @@ def _scan_work(sw, B, T_in, steps, n_filters, keep):
     return (fwd_b, 2.0 * sb * fwd_macs), (bwd_b, 2.0 * sb * bwd_macs)
 
 
+# The quality gate's shapes (B=32, text buckets 32 and 48, mel buckets of
+# 128 and 256 frames): T_in 48 is no multiple of the 32-position attention
+# tiles, so the backward's attn_tiles_kernel and the forward's energy grid
+# take a ragged last tile.
+GATE_SCAN_SHAPES = ((32, 32, 128, 25), (32, 48, 128, 26), (32, 48, 256, 27))
+
+
 def scan_phase(model, cfg, dev, card):
-    """Rows 1 and 2 at bench width (B=128, bf16, dropout on): field by
+    """Rows 1 and 2 at full width (bf16, dropout on): at B=128 field by
     field over 64 steps at T_in 128 (with perturbed outputs rejected), 64
-    and 192; then both over the full 512 steps at T_in 128, held and timed,
-    the backward from the plain forward's residuals."""
-    B = TRAIN_SHAPE["B"]
+    and 192; at the quality gate's B=32 x T_in 32 and 48 over 128 steps
+    and at T_in 48 over 256 (each with perturbed outputs rejected and the
+    backward bit-identical in two runs); then both at B=128 over the full
+    512 steps at T_in 128, held and timed, the backward from the plain
+    forward's residuals."""
+    B0 = TRAIN_SHAPE["B"]
     fwd_names, bwd_names = ts.Residuals._fields, ts.ChainGrads._fields
     out = {}
-    for T_in, steps, seed in ((TRAIN_SHAPE["T_in"], 64, 21), (64, 64, 23),
-                              (192, 64, 24),
-                              (TRAIN_SHAPE["T_in"], TRAIN_SHAPE["T_out"], 22)):
+    for B, T_in, steps, seed in (
+            (B0, TRAIN_SHAPE["T_in"], 64, 21), (B0, 64, 64, 23),
+            (B0, 192, 64, 24), *GATE_SCAN_SHAPES,
+            (B0, TRAIN_SHAPE["T_in"], TRAIN_SHAPE["T_out"], 22)):
         sw, inp, kw, cots = _scan_inputs(model, cfg, dev, B, T_in, steps,
                                          seed)
         got = ts.forward_residuals(sw, *inp, **kw)
         want = ts.forward_residuals_plain(sw, *inp, **kw)
         torch.cuda.synchronize()
-        ferr = check_fields(f"scan forward, T_in {T_in}, {steps} steps", got,
-                            want, fwd_names, SCAN_FWD_REL)
+        what = f"B={B} T_in {T_in}, {steps} steps"
+        ferr = check_fields(f"scan forward, {what}", got, want, fwd_names,
+                            SCAN_FWD_REL)
         args = (sw, want, inp[1], inp[2], *cots)
         gk = ts.backward_chain(*args, **kw)
         gp = ts.backward_chain_plain(*args, **kw)
         torch.cuda.synchronize()
-        berr = check_fields(f"scan backward, T_in {T_in}, {steps} steps", gk,
-                            gp, bwd_names, SCAN_BWD_REL)
+        berr = check_fields(f"scan backward, {what}", gk, gp, bwd_names,
+                            SCAN_BWD_REL)
         for label, errs in (("forward", ferr), ("backward", berr)):
             print(f"train scan [{card}] {label} B={B} T_in={T_in} {steps} "
                   f"steps bf16: max |err| by field, as a share of the "
@@ -1495,7 +1531,7 @@ def scan_phase(model, cfg, dev, card):
                       f"{k} {r:.2e} ({lim[k]})" for k, (_, r) in errs.items()
                       for lim in [SCAN_FWD_REL if label == "forward"
                                   else SCAN_BWD_REL]))
-        if seed == 21:
+        if seed == 21 or B != B0:
             must_reject("attention w shifted one position",
                         got._replace(w=torch.roll(got.w, 1, dims=2)), want,
                         fwd_names, SCAN_FWD_REL)
@@ -1506,8 +1542,9 @@ def scan_phase(model, cfg, dev, card):
             for name in ("d_k2", "d_v", "d_processed", "dga", "d_q"):
                 if not torch.equal(getattr(again, name), getattr(gk, name)):
                     fail(f"scan backward: {name} differs between two runs")
-            print(f"train scan [{card}] backward B={B}: d_k2, d_v, "
-                  f"d_processed, dga and d_q bit-identical in two runs")
+            print(f"train scan [{card}] backward B={B} T_in={T_in} {steps} "
+                  f"steps: d_k2, d_v, d_processed, dga and d_q bit-identical "
+                  f"in two runs")
         if steps != TRAIN_SHAPE["T_out"]:
             continue
         fwd_ms = cuda_ms(lambda: ts.forward_residuals(sw, *inp, **kw),
@@ -2087,6 +2124,341 @@ def conv_witness(card, dev, gc, gd, taps_c, taps_d):
                   for k, v in s.items()))
 
 
+BUILD = Path(__file__).resolve().parent / "build"
+
+
+def _state_tensors(state):
+    """Copies of every tensor of a train state by name: parameters,
+    batchnorm statistics, Adam moments, the step, the Adam count and the
+    learning rate."""
+    out = {f"param/{k}": v.detach().clone()
+           for k, v in state.model.named_parameters()}
+    for group in ("stats", "exp_avg", "exp_avg_sq"):
+        out.update({f"{group}/{k}": v.clone()
+                    for k, v in getattr(state, group).items()})
+    out.update(step=state.step.clone(), adam_count=state.adam_count.clone(),
+               learning_rate=state.learning_rate.clone())
+    return out
+
+
+def _largest_gap(a, b):
+    """(name, largest |a - b|) over two states' tensors; (None, 0.0) when
+    they are equal bit for bit."""
+    worst = (None, 0.0)
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            gap = float((a[k].double() - b[k].double()).abs().max())
+            if worst[0] is None or gap > worst[1]:
+                worst = (k, gap)
+    return worst
+
+
+def gate_input_check(model, cfg, dev, card, text):
+    """Rows 3 and 6 on a trained model's weights at the quality gate's
+    input (B=1, T_in = len(text), shorter than the location conv), each
+    against its plain version on the same inputs with a perturbed output
+    rejected: row 3 field by field (ENC_FWD_REL); row 6 over three 64-step
+    chunks field by field (STEP_REL) with a gate that never latches, then
+    one chunk again with a threshold between the two versions' logits at a
+    step where both exceed every logit before it in the chunk, so that the
+    chunk latches there in both."""
+    bf16 = torch.bfloat16
+    seq = torch.tensor([text_to_sequence(text, cfg.text_cleaners)],
+                       device=dev)
+    T = seq.shape[1]
+    lengths = torch.tensor([T], device=dev)
+    with torch.no_grad():
+        x = model.embedding.weight[seq.long()]
+        for i, conv in enumerate(model.encoder.convolutions):
+            x = torch.relu(tm._conv_bn_apply(
+                conv, f"encoder.convolutions.{i}.1", x, None, {}, False,
+                bf16))
+    lstm = model.encoder.lstm
+    packed = el.pack_bilstm(lstm_weights(lstm, "_l0"),
+                            lstm_weights(lstm, "_l0_reverse"), bf16)
+    xs = x.to(bf16).contiguous()
+    xsr = _reverse_by_length(x, lengths).to(bf16).contiguous()
+    fwd = el.bilstm_forward(*packed, xs, xsr)
+    fwd_want = el.bilstm_forward_plain(*packed, xs, xsr)
+    torch.cuda.synchronize()
+    fwd_names = ("gf", "gb", "hf", "hb", "cf", "cb")
+    enc_errs = check_fields(f"encoder forward at B=1, T={T}, trained", fwd,
+                            fwd_want, fwd_names, ENC_FWD_REL)
+    must_reject(f"encoder forward at T={T}, c x 1.05",
+                (*fwd[:4], fwd[4] * 1.05, fwd[5]), fwd_want, fwd_names,
+                ENC_FWD_REL)
+
+    limits = STEP_REL[bf16]
+    cs = 64
+    memory = tm.encode(model, seq, lengths, cfg, compute_dtype=bf16)
+    processed = tm.processed_memory_of(model, memory, bf16)
+    mask = torch.ones(1, T, dtype=torch.bool, device=dev)
+    fp = ds.pack_decoder_params(model, bf16)
+    inputs = ds.attention_inputs(memory, processed, mask)
+    carry = db.ChunkCarry(*(torch.zeros(1, k, device=dev) for k in (
+        cfg.attention_rnn_dim, cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
+        cfg.decoder_rnn_dim, T, T, cfg.encoder_embedding_dim,
+        cfg.n_mel_channels * cfg.n_frames_per_step)),
+        *(torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2)))
+
+    def both(carry, t0, gate_logit):
+        kw = dict(t0=t0, chunk_steps=cs, gate_logit=gate_logit)
+        got = ds.decoder_step_chunk(fp, carry, *inputs, **kw)
+        want = ds.decoder_step_chunk_plain(fp, carry, *inputs, **kw)
+        torch.cuda.synchronize()
+        return got, want
+
+    def held(what, got, want, upto):
+        """Every field within STEP_REL, the gate over steps [0, upto); the
+        latch and the length equal."""
+        fields = {}
+        for name, a, b in _chunk_fields(got, want):
+            if name == "gate":
+                if not torch.equal(a[upto:], b[upto:]):
+                    fail(f"row 6 {what}: the masked gate differs after "
+                         f"step {upto}")
+                a, b = a[:upto], b[:upto]
+            fields[name] = field_err(a, b)
+            if fields[name][1] > limits[name]:
+                fail(f"row 6 {what} disagrees with its plain version on "
+                     f"{name}: max |err| {fields[name][0]}, "
+                     f"{fields[name][1]:.3e} of the field's largest value, "
+                     f"beyond {limits[name]}")
+        for name in ("fin", "lens"):
+            if not torch.equal(getattr(got.carry, name),
+                               getattr(want.carry, name)):
+                fail(f"row 6 {what}: {name} differs from the plain version")
+        _check_catches(got, want, limits)
+        return fields
+
+    # Three chunks with a gate that never latches, each from the plain
+    # version's carry, held field by field. The latch goes where both
+    # versions' logits clear every earlier logit of either in the chunk,
+    # at the widest margin, in the first chunk that has such a step s >= 1
+    # (a trained gate's logits may fall from step 0 on); none: step 0.
+    free, chunks = {}, []
+    for c in range(3):
+        got, want = both(carry, c * cs, 1e30)
+        for k, v in held(f"T_in={T}, trained, chunk {c}, gate never "
+                         f"latching", got, want, cs).items():
+            free[k] = max(free.get(k, v), v, key=lambda x: x[1])
+        chunks.append((carry, got.gate[:, 0].double().cpu(),
+                       want.gate[:, 0].double().cpu()))
+        carry = want.carry
+    pick = None
+    for c, (carry, gk, gp) in enumerate(chunks):
+        for t in range(1, cs):
+            below = float(max(gk[:t].max(), gp[:t].max()))
+            above = float(min(gk[t], gp[t]))
+            if above > below and (pick is None or above - below > pick[2]):
+                pick = (c, t, above - below, (above + below) / 2)
+        if pick is not None:
+            break
+    if pick is None:
+        gk, gp = chunks[0][1:]
+        pick = (0, 0, None, float(min(gk[0], gp[0])) - 1.0)
+    c, s, margin, thr = pick
+    got, want = both(chunks[c][0], c * cs, thr)
+    if int(got.carry.fin) != 1 or int(got.carry.lens) != c * cs + s + 1:
+        fail(f"row 6 at T_in={T} with the gate logit {thr}: latched "
+             f"{int(got.carry.fin)} at length {int(got.carry.lens)}, "
+             f"expected at step {c * cs + s}")
+    latched = held(f"T_in={T}, trained, latching at step {c * cs + s}", got,
+                   want, s + 1)
+    print(f"trainer [{card}] rows 3 and 6 on the trained weights at "
+          f"{text!r} (B=1, T_in={T}) against their plain versions, max "
+          f"|err| as a share of the field's largest |value| (limit): row 3 "
+          + ", ".join(f"{k} {r:.2e} ({ENC_FWD_REL[k]})"
+                      for k, (_, r) in enc_errs.items())
+          + f"; row 6, {3 * cs} steps in chunks of {cs}, gate never "
+          "latching: " + ", ".join(f"{k} {r:.2e} ({limits[k]})"
+                                   for k, (_, r) in free.items())
+          + f"; the chunk from step {c * cs} latching at step {c * cs + s} "
+          f"(logit threshold {thr:.4f}, margin "
+          f"{margin if margin is None else f'{margin:.4f}'}): "
+          + ", ".join(f"{k} {r:.2e}" for k, (_, r) in latched.items())
+          + "; latch and length equal, perturbed outputs rejected")
+
+
+def _resident_ms(state, batch, cfg, gen, steps=5):
+    """Host ms a step of ``train_step`` on a batch already on the card:
+    one warm step, then ``steps`` ending in a synchronise."""
+    state, _, _ = tstate.train_step(state, batch, cfg, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _, _ = tstate.train_step(state, batch, cfg, gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3, state
+
+
+def trainer_phase(dev, card, seed):
+    """Training from a filelist through the user's entry points, at full
+    width (the tone demo's config: bf16, every dropout on, text buckets 32
+    and 48): a 128-utterance tone corpus, ``Trainer.fit`` for 3 epochs with
+    a checkpoint and a validation every 8 steps. The train pipeline keeps
+    partial buckets (drop_last=False) so that the 48 bucket, 2 of the 128
+    utterances, trains too. Rows 1-4 must launch and no plain version run;
+    both text buckets must be met. A new Trainer resumed from the last
+    checkpoint holds the same state bit for bit, and two more steps of it
+    equal two more steps of the first. ``synthesize`` from the restored
+    model through both decoders (row 6 for fused=True). Times: the fit's
+    host interval a step beside ``train_step`` on a resident batch of each
+    shape, the step loop's wait on prefetch, the idle share of a profiled
+    window of ``fit``."""
+    from tacotron2_tpu_torch.data import DataPipeline, TextMelDataset
+    from tacotron2_tpu_torch.tools import train_demo
+    from tacotron2_tpu_torch.training.trainer import Trainer
+
+    BUILD.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="trainer_phase_", dir=BUILD))
+    try:
+        cfg = train_demo.demo_config(
+            hparams=f"seed={seed},iters_per_checkpoint=8,log_interval=4")
+        filelist = train_demo.build_corpus(str(root / "corpus"), 128)
+        common = dict(process_index=0, process_count=1)
+        train = DataPipeline(TextMelDataset(filelist, cfg), cfg,
+                             drop_last=False, **common)
+        val = DataPipeline(TextMelDataset(filelist, cfg, shuffle=False), cfg,
+                           drop_last=False, **common)
+        out = str(root / "run")
+        trainer = Trainer(cfg, out, device=dev)
+        for fn in TRAIN_KERNELS.values():
+            fn.launches = 0
+        plain0 = sum(f.calls for f in PLAIN_VERSIONS)
+        trainer.fit(train, val, epochs=3)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
+        plain = sum(f.calls for f in PLAIN_VERSIONS) - plain0
+        fit = trainer.last_fit
+        steps = int(trainer.state.step)
+        for name, c in counts.items():
+            if c == 0:
+                fail(f"Trainer.fit never launched the {name} kernel")
+        if plain:
+            fail(f"Trainer.fit ran a plain version {plain} times")
+        if steps != 3 * train.steps_per_epoch() or fit.steps != steps:
+            fail(f"Trainer.fit ran {steps} steps, not 3 epochs of "
+                 f"{train.steps_per_epoch()}")
+        met = sorted(trainer.shapes_met)
+        if {t for k, t, _ in met if k == "train"} != set(cfg.text_buckets):
+            fail(f"Trainer.fit met the shapes {met}: not both text buckets")
+        with open(Path(out) / "logs" / "metrics.jsonl") as f:
+            logged = [json.loads(line) for line in f]
+        val_losses = [r["validation/loss"] for r in logged
+                      if "validation/loss" in r]
+        ckpts = trainer.checkpointer.all_checkpoints()
+        if not val_losses or len(ckpts) < 2:
+            fail(f"Trainer.fit: {len(val_losses)} validations, checkpoints "
+                 f"{ckpts}")
+        losses = [r["training/loss"] for r in logged if "training/loss" in r]
+        if not all(math.isfinite(x) for x in losses + val_losses):
+            fail(f"Trainer.fit: losses {losses}, validation {val_losses}")
+        print(f"trainer [{card}] Trainer.fit 3 epochs, {steps} steps, bf16 "
+              f"B=32 full width, dropout on: shapes (kind, T_in, T_out) "
+              f"{met}; launches {counts}; training losses {losses}; "
+              f"validation losses {val_losses}; checkpoints "
+              f"{[Path(p).name for p in ckpts]}")
+
+        # resume: the same state, and two more steps the same
+        last = trainer.checkpointer.latest()
+        before = _state_tensors(trainer.state)
+        resumed = Trainer(cfg, out, checkpoint_path=last, device=dev)
+        name, gap = _largest_gap(_state_tensors(resumed.state), before)
+        if name is not None:
+            fail(f"resumed state differs from the saved one: {name} by {gap}")
+        trainer.fit(train, None, epochs=1 << 30, max_steps=steps + 2)
+        resumed.fit(train, None, epochs=1 << 30, max_steps=steps + 2)
+        name, gap = _largest_gap(_state_tensors(resumed.state),
+                                 _state_tensors(trainer.state))
+        if name is None:
+            verdict = "equal bit for bit"
+        else:
+            again = Trainer(cfg, str(root / "again"), checkpoint_path=last,
+                            device=dev)
+            again.fit(train, None, epochs=1 << 30, max_steps=steps + 2)
+            n2, noise = _largest_gap(_state_tensors(again.state),
+                                     _state_tensors(resumed.state))
+            verdict = (f"NOT equal bit for bit: largest gap {gap} at {name}; "
+                       f"the same two steps from the same checkpoint twice "
+                       f"differ by {noise} at {n2}")
+            # a resume fault (other dropout draws or batches, moments not
+            # restored) moves the state by far more than the card's own
+            # run-to-run noise
+            if n2 is None or gap > 2 * noise:
+                fail(f"resume: two more steps {verdict} (limit: twice the "
+                     f"same-checkpoint gap)")
+        print(f"trainer [{card}] resumed from {Path(last).name}: state equal "
+              f"bit for bit; two more steps of the resumed Trainer against "
+              f"two more of the first: {verdict}")
+
+        # synthesis from the restored model, through both decoders
+        inf_cfg = cfg.replace(prenet_dropout_at_inference=False)
+        for fused, must in ((False, ("encoder_lstm_fwd",)),
+                            (True, ("encoder_lstm_fwd",
+                                    "decoder_step_chunk"))):
+            (res,), n = _counted(
+                f"synthesize(fused={fused}) from the restored model",
+                lambda fused=fused: tinfer.synthesize(
+                    resumed.state.model, ["we like jax"], inf_cfg,
+                    vocoder="none", fused=fused, max_steps=256, device=dev),
+                must)
+            if (res.mel.ndim != 2 or res.mel.shape[1] != cfg.n_mel_channels
+                    or not res.mel.shape[0] or not np.isfinite(res.mel).all()):
+                fail(f"synthesize(fused={fused}): mel {res.mel.shape}")
+            print(f"trainer [{card}] synthesize(fused={fused}) from the "
+                  f"restored model: mel {tuple(res.mel.shape)}, finite; "
+                  f"launches {n}")
+        gate_input_check(resumed.state.model, inf_cfg, dev, card,
+                         "we like jax")
+
+        # where the fit's time goes
+        by_shape = {}
+        for dt, shape in zip(fit.step_intervals_s, fit.interval_shapes):
+            by_shape.setdefault(shape, []).append(dt * 1e3)
+        resident = {}
+        state = trainer.state  # done with: its steps time the shapes
+        for shape in sorted(by_shape):
+            batch = next(b for b in train.epoch(0)
+                         if (b.text.shape[1], b.mel.shape[1]) == shape)
+            batch = tstate.Batch(*(t.to(dev) for t in batch))
+            resident[shape], state = _resident_ms(
+                state, batch, cfg, torch.Generator(device=dev).manual_seed(1))
+        print(f"trainer [{card}] fit: wall {fit.wall_s:.3f} s for {fit.steps} "
+              f"steps (validation and checkpoints included); the step loop "
+              f"waited {fit.prefetch_wait_s * 1e3:.1f} ms on prefetch; median "
+              f"host interval a step {np.median(fit.step_intervals_s) * 1e3:.2f}"
+              f" ms; by shape (T_in, T_out): median fit interval / "
+              f"train_step on a resident batch, ms: " + "; ".join(
+                  f"{s} {np.median(v):.2f} / {resident[s]:.2f} ({len(v)} "
+                  f"intervals)" for s, v in sorted(by_shape.items())))
+        # a window of fit's steps between checkpoints: the profiler starts
+        # as the first step returns and stops as the seventh does
+        n0 = cfg.iters_per_checkpoint * (int(resumed.state.step)
+                                         // cfg.iters_per_checkpoint + 1)
+        resumed.fit(train, None, epochs=1 << 30, max_steps=n0)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
+        def window(step, _):
+            if step == n0 + 1:
+                prof.start()
+            elif step == n0 + 7:
+                torch.cuda.synchronize()
+                prof.stop()
+        resumed.fit(train, None, epochs=1 << 30, max_steps=n0 + 7,
+                    on_step=window)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            fail("the profiler saw no device activity in Trainer.fit")
+        print(f"trainer profile [{card}] Trainer.fit, 6 steps between "
+              f"checkpoints: " + summarize_kernels(events, top=8))
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2120,6 +2492,7 @@ def main() -> int:
     enc_bwd = encoder_train_phase(model, dev, card, enc)
     del model
     train_counts = train_phase(cfg, dev, card, seed)
+    trainer_counts = trainer_phase(dev, card, seed)
     enc["training_step_with_plain_version"] = encoder_swap_phase(
         cfg, dev, card, seed)
     step_check_phase(cfg, dev, card, seed)
@@ -2130,6 +2503,8 @@ def main() -> int:
     dec["launches_stream_batch"] = utt["stream_batch"]["decoder_chunk"]
     for k in (scan_fwd, scan_bwd, enc_bwd):
         k["launches"] = train_counts[k["name"]]
+    for k in (scan_fwd, scan_bwd, enc, enc_bwd):
+        k["launches_trainer_phase"] = trainer_counts[k["name"]]
     step["launches"] = sum(utt[k]["decoder_step_chunk"] for k in (
         "offline_hifigan", "offline_griffin_lim", "streamed"))
     enc["launches_one_utterance"] = utt["offline_hifigan"]["encoder_lstm_fwd"]

@@ -394,7 +394,11 @@ __global__ void __launch_bounds__(AB_THREADS) attn_bwd_kernel(AttnBwd<W> a) {
       const float de = rnd<W>(dwt[t]);
       const float dm = de * vd * (1.0f - f * f);
       dv += f * de;
+#ifdef SCAN_DPROC_BF16  // the known-bad probe build (kernels/gate_probe.py)
+      a.dproc[o] = rnd<__nv_bfloat16>(a.dproc[o] + dm);
+#else
       a.dproc[o] += dm;
+#endif
       const float dmc = rnd<W>(dm);
       dms[t * datt + d] = dmc;
       dq += dmc;
@@ -821,7 +825,11 @@ attn_tiles_kernel(TilesTc a) {
           const float f = tanhf(m + pv[j][e]);
           const float der = s.de[tl];
           const float dm = der * s.vf[d] * (1.0f - f * f);
+#ifdef SCAN_DPROC_BF16  // the known-bad probe build (kernels/gate_probe.py)
+          a.dproc[o] = rnd<bf16>(dp[j][e] + dm);
+#else
           a.dproc[o] = dp[j][e] + dm;
+#endif
           dmc = rnd<bf16>(dm);
           fde = f * der;
         }

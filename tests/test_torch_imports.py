@@ -46,7 +46,12 @@ def test_importing_every_module_loads_no_jax():
     assert "tacotron2_tpu_torch.kernels.decoder_batch" in out
     for new in ("audio.filters", "audio.stft", "audio.mel", "infer",
                 "streaming", "models.hifigan", "kernels.decoder_step",
-                "kernels.int8_matmul", "kernels.mel_kernel"):
+                "kernels.int8_matmul", "kernels.mel_kernel",
+                "data.dataset", "data.pipeline", "text.arpabet",
+                "training.schedules", "training.diagnostics",
+                "training.logging", "training.checkpoint",
+                "training.trainer", "train", "tools.train_demo",
+                "tools.synthesis_check", "kernels.gate_probe"):
         assert f"tacotron2_tpu_torch.{new}" in out
     assert [m for m in out if _forbidden(m)] == []
 
@@ -129,3 +134,32 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     assert (el.bilstm_forward.launches, db.decoder_chunk.launches) == launches
     assert el.bilstm_forward_plain.calls == plain[0] + 1
     assert db.decoder_chunk_plain.calls == plain[1] + 2
+
+
+def test_training_entry_points_need_a_card_unless_asked_for_cpu(tmp_path):
+    """``Trainer``, the train CLI, the tone demo and the gate's check run
+    on CUDA by default and raise without a card; none carries on on the
+    CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from tacotron2_tpu_torch import train
+    from tacotron2_tpu_torch.data.pipeline import DeviceTransfer
+    from tacotron2_tpu_torch.tools import synthesis_check, train_demo
+    from tacotron2_tpu_torch.training.trainer import Trainer
+    hp = ("symbols_embedding_dim=16,encoder_embedding_dim=16,"
+          "attention_rnn_dim=16,decoder_rnn_dim=16,prenet_dim=8")
+    calls = {
+        "Trainer": lambda: Trainer(SMALL, str(tmp_path / "t")),
+        "train.main": lambda: train.main(["-o", str(tmp_path / "c"),
+                                          "--hparams", hp]),
+        "train_demo.run": lambda: train_demo.run(
+            1, str(tmp_path / "d"), hparams=hp, n_utts=2),
+        "check_checkpoint": lambda: synthesis_check.check_checkpoint(
+            str(tmp_path / "none"), hparams=hp),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(ValueError, match="CUDA device"):
+        DeviceTransfer("cpu")
+    Trainer(SMALL, str(tmp_path / "cpu"), device="cpu")

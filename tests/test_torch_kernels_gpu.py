@@ -1175,3 +1175,72 @@ def test_quantized_serving_captures_in_its_worker(cuda):
     want = tm._finish(qm, *out, cfg, None)
     assert n == int(want.mel_lengths[0])
     assert torch.equal(torch.from_numpy(mel), want.mel_postnet[0, :n].cpu())
+
+
+# Rows 1 and 2 at the quality gate's shapes (B=32, T_in 32 and 48, and 40
+# between them; 128 decoder steps), full width, bf16 with dropout: T_in 40
+# and 48 are no multiple of the 32-position attention tiles, so the
+# backward's attn_tiles_kernel and the forward's energy grid take a ragged
+# last tile. Each field within its own share of its largest |value|, the
+# tables of chip_smoke.py (SCAN_FWD_REL, SCAN_BWD_REL; change both together).
+SCAN_FWD_REL = dict(ga=5e-2, gd=5e-2, att_h=6e-2, dec_h=5e-2, att_c=7e-3,
+                    dec_c=2e-2, ctx=5e-2, w=5e-2)
+SCAN_BWD_REL = dict(dga=7e-2, dgd=4e-2, d_prenet=3e-2, d_ctx=5e-2, d_q=5e-2,
+                    d_processed=1e-2, d_k2=2e-2, d_v=7e-3)
+FULL = Tacotron2Config()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T_in", [32, 40, 48])
+def test_scan_kernels_at_the_gate_shapes_match_plain(cuda, T_in):
+    sw, pre, mem, proc, emask, kw = scan_case(cuda, torch.bfloat16, 32, T_in,
+                                              128, True, seed=T_in, cfg=FULL)
+    got = ts.forward_residuals(sw, pre, mem, proc, emask, **kw)
+    res = ts.forward_residuals_plain(sw, pre, mem, proc, emask, **kw)
+    torch.cuda.synchronize()
+    errs = rel_errs(got, res, ts.Residuals._fields)
+    assert all(errs[k] <= SCAN_FWD_REL[k] for k in errs), errs
+    g = torch.Generator(device=cuda).manual_seed(T_in)
+    cot = lambda x: torch.randn(x.shape, generator=g, device=cuda) * 0.01
+    cots = (cot(res.dec_h), cot(res.ctx), cot(res.w) * (emask == 0))
+    gk = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
+    gp = ts.backward_chain_plain(sw, res, mem, proc, *cots, **kw)
+    again = ts.backward_chain(sw, res, mem, proc, *cots, **kw)
+    torch.cuda.synchronize()
+    errs = rel_errs(gk, gp, ts.ChainGrads._fields)
+    assert all(errs[k] <= SCAN_BWD_REL[k] for k in errs), errs
+    for name in ts.ChainGrads._fields:
+        assert torch.equal(getattr(gk, name), getattr(again, name)), name
+
+
+@pytest.mark.gpu
+def test_prefetch_copies_to_the_card_one_batch_ahead(cuda):
+    """20 batches through ``prefetch`` with a ``DeviceTransfer`` whose copy
+    stream is held back by a sleep before every copy: each batch, read on
+    the consumer's stream right after it is received, equals its CPU
+    source (the consumer waited for its copy, and no pinned buffer was
+    refilled before its copy ran)."""
+    from tacotron2_tpu_torch.data.pipeline import DeviceTransfer, prefetch
+    from tacotron2_tpu_torch.training.state import Batch
+    g = torch.Generator().manual_seed(0)
+    batches = [Batch(torch.randint(0, 148, (32, 48), generator=g),
+                     torch.randint(1, 48, (32,), generator=g),
+                     torch.randn(32, 256, 80, generator=g),
+                     torch.rand(32, 256, generator=g),
+                     torch.randint(1, 256, (32,), generator=g),
+                     torch.ones(32)) for _ in range(20)]
+    transfer = DeviceTransfer(cuda)
+    send = transfer.send
+
+    def slow_send(batch):
+        with torch.cuda.stream(transfer.stream):
+            torch.cuda._sleep(2_000_000)  # ~1 ms of the copy stream
+        return send(batch)
+    transfer.send = slow_send
+    read = [tuple(t.clone() for t in b)
+            for b in prefetch(iter(batches), depth=2, transfer=transfer)]
+    torch.cuda.synchronize()
+    assert len(read) == 20
+    for got, want in zip(read, batches):
+        for a, b in zip(got, want):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
