@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's serving paths, its training step and its trainer on one
-CUDA card and check them.
+"""Drive the port's serving paths, its training step, its trainer, its
+vocoders and its front doors (the infer CLI, the HTTP server) on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -76,10 +77,35 @@ on failure:
     the fit's step time beside
     ``train_step`` on a resident batch, its wait on prefetch and a profile;
 11. one fp32 training step on the card against the CPU plain versions, then
-    with cuDNN's convolutions, and each convolution against fp64.
+    with cuDNN's convolutions, and each convolution against fp64;
+12. WaveGlow at the published widths (~88M parameters, fp32, seeded, WN.end
+    perturbed): the card against the CPU at 16 frames on the same weights
+    and z (WG_CPU_REL), the flow's round trip on the card at 16 and 200
+    frames (WG_ROUND_TRIP_REL), ``synthesize(vocoder="waveglow")`` on the
+    200-step utterance with and without the ``Denoiser`` (times, peak
+    memory), the vocoder alone with cuDNN's TF32 off (this script's
+    setting) and on (PyTorch's default, which the CLI and the server run
+    with); perturbed outputs rejected;
+13. vocoder training on a 32-utterance tone corpus at full width: 3 WaveGlow
+    steps (B=8, 64-mel segments) and 3 HiFi-GAN V1 steps (B=16, 32-mel
+    segments), each with finite losses and every network updated, each
+    trainer writing a checkpoint;
+14. the front doors: ``python -m tacotron2_tpu_torch.infer`` in processes of
+    its own on a full-width checkpoint (Griffin-Lim; HiFi-GAN with --fused;
+    WaveGlow with --int8; the vocoders from phase 13's checkpoints), every
+    WAV checked; ``http_server.make_server`` in a thread, driven by urllib
+    (/healthz, 8 concurrent /synthesize mels against its
+    ``BatchingSynthesizer``, WAVs, /stream as NDJSON and, from a HiFi-GAN
+    server, as PCM), rows 3, 5 and 6 counted by their wrappers and by
+    torch.profiler;
+15. raw-audio batches at the tone demo's shape (B=32, T_in 32, T_out 256,
+    bf16): the targets through the mel kernel (row 8) against the
+    ``torch.matmul`` form, then 3 ``train_step_from_audio`` steps (row 8
+    once a step, rows 1-4, no plain version).
 
 The second-to-last line is the ``kernels`` JSON object (times, bounds,
-launches, errors); the last is the device line.
+launches, errors; ``launches_http_server``, ``launches_audio_batch`` and
+``launches_infer_cli`` count the new paths); the last is the device line.
 """
 
 from __future__ import annotations
@@ -2459,6 +2485,695 @@ def trainer_phase(dev, card, seed):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------- vocoders and the front doors
+
+REPO = Path(__file__).resolve().parent
+# WaveGlow: WN.end starts at zero (every coupling the identity), so the
+# phase perturbs it (perturb_waveglow). Limits: each field's largest |err|
+# as a share of its largest |value|.
+WG_END_STD = 1e-2
+WG_CPU_REL = dict(z=8e-6, log_s=2e-6, log_det=1e-6, audio=6e-6)
+WG_ROUND_TRIP_REL = 4e-5
+# The server's mels against its BatchingSynthesizer called directly: a row
+# batched with other rows, or padded to another bucket, may take the
+# kernel's rounding otherwise (DEC_REL's mel at bf16).
+SERVE_MEL_REL = DEC_REL[torch.bfloat16]["mel"]
+
+
+def perturb_waveglow(model, g):
+    """WN.end from N(0, WG_END_STD^2), so that the couplings act, and each
+    row of every 1x1 weight scaled by U(0.8, 1.25), so that log |det W| is
+    not 0 (the init's rotations give 0 up to rounding, against which a
+    share of the largest value means nothing)."""
+    with torch.no_grad():
+        for w in model.WN:
+            w.end.weight.normal_(0, WG_END_STD, generator=g)
+        for inv in model.convinv:
+            w = inv.conv.weight
+            w.mul_(torch.empty(w.shape[0], 1, 1).uniform_(0.8, 1.25,
+                                                          generator=g))
+
+
+def _waveglow_flops(wcfg, B, t_mel):
+    """Multiply-adds x 2 of one WaveGlow pass over B x t_mel frames: the
+    transposed conv, and per flow the 1x1 weight, start, the fused cond
+    conv, every in and res/skip layer and end."""
+    from tacotron2_tpu_torch.models import waveglow
+    t_g = t_mel * wcfg.upsample_stride // wcfg.n_group
+    n, L, k = wcfg.wn_channels, wcfg.wn_layers, wcfg.wn_kernel_size
+    mel = wcfg.n_mel_channels
+    macs = B * t_mel * wcfg.upsample_stride * mel * mel * (
+        wcfg.upsample_kernel // wcfg.upsample_stride)
+    for i in range(wcfg.n_flows):
+        c = waveglow.remaining_channels(wcfg, i)
+        half = c // 2
+        per_group = (c * c + half * n + mel * wcfg.n_group * 2 * n * L
+                     + L * n * 2 * n * k + (L - 1) * n * 2 * n + n * n
+                     + n * 2 * (c - half))
+        macs += B * t_g * per_group
+    return 2 * macs
+
+
+def _tone(n_samples, freq=220.0, sr=22050):
+    t = torch.arange(n_samples) / sr
+    return 0.3 * torch.sin(2 * math.pi * freq * t)[None]
+
+
+def _wg_fields(out, audio):
+    return (out.z, out.log_s_total, out.log_det_total, audio)
+
+
+def waveglow_phase(cfg, dev, card, seed):
+    """WaveGlow at the published widths (12 flows, 8 WN layers of 256
+    channels, ~88M parameters), seeded weights perturbed
+    (``perturb_waveglow``), fp32: the card against the CPU at 16 frames (the
+    same weights and z), the flow's round trip on the card, then
+    ``synthesize(vocoder="waveglow")`` on the 200-step utterance with and
+    without the ``Denoiser``; times, peak memory, and the vocoder alone
+    with cuDNN's TF32 off (this script's setting) and on (PyTorch's
+    default, which the CLI and the server run with). Returns the model."""
+    from tacotron2_tpu_torch.models import waveglow
+    wcfg = waveglow.WaveGlowConfig(n_mel_channels=cfg.n_mel_channels,
+                                   upsample_stride=cfg.hop_length)
+    model = waveglow.WaveGlow(wcfg, torch.Generator().manual_seed(seed + 2))
+    perturb_waveglow(model, torch.Generator().manual_seed(seed + 3))
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator().manual_seed(seed + 4)
+    mel = torch.randn(1, 16, wcfg.n_mel_channels, generator=g) * 2 - 5
+    audio = _tone(16 * wcfg.hop_length)
+    z = torch.randn(1, wcfg.n_group, 16 * wcfg.hop_length // wcfg.n_group,
+                    generator=g) * 0.666
+    names = ("z", "log_s", "log_det", "audio")
+    runs = {}
+    for key, where in (("cpu", "cpu"), ("card", dev)):
+        model = model.to(where)
+        with torch.no_grad():
+            out = waveglow.forward(model, audio.to(where), mel.to(where),
+                                   wcfg)
+        back = waveglow.infer(model, mel.to(where), wcfg, z=z.to(where))
+        runs[key] = [t.cpu() for t in _wg_fields(out, back)]
+    errs = check_fields("WaveGlow card against CPU", runs["card"],
+                        runs["cpu"], names, WG_CPU_REL)
+    bad = list(runs["card"])
+    bad[0] = bad[0] + 10 * WG_CPU_REL["z"] * bad[0].abs().max()
+    must_reject("WaveGlow z", bad, runs["cpu"], names, WG_CPU_REL)
+
+    # the round trip: forward, then the inverse with that z, on the card
+    trips = {}
+    for frames in (16, UTTERANCE_STEPS):
+        a = _tone(frames * wcfg.hop_length, 330.0).to(dev)
+        m = torch.randn(1, frames, wcfg.n_mel_channels, generator=g
+                        ).to(dev) * 2 - 5
+        with torch.no_grad():
+            zz = waveglow.forward(model, a, m, wcfg).z
+        back = waveglow.infer(model, m, wcfg, z=zz)
+        trips[frames] = field_err(back, a)[1]
+        if trips[frames] > WG_ROUND_TRIP_REL:
+            fail(f"WaveGlow round trip at {frames} frames: {trips[frames]} "
+                 f"of the audio's largest value, beyond {WG_ROUND_TRIP_REL}")
+        bad = back.clone()
+        bad[0, 100] += 10 * WG_ROUND_TRIP_REL
+        if field_err(bad, a)[1] <= WG_ROUND_TRIP_REL:
+            fail("the round trip's comparison passes a perturbed output")
+    print(f"waveglow [{card}] {n_params / 1e6:.1f}M parameters, fp32, "
+          f"cuDNN TF32 off: card against the CPU at 16 frames, max |err| as "
+          f"a share of the largest value (limits {WG_CPU_REL}): " + ", ".join(
+              f"{k} {e[1]:.2e}" for k, e in errs.items())
+          + "; round trip on the card (limit " f"{WG_ROUND_TRIP_REL}): "
+          + ", ".join(f"{k} frames {v:.2e}" for k, v in trips.items())
+          + "; perturbed outputs rejected")
+
+    # synthesize on the 200-step utterance, with and without the Denoiser
+    tts = tm.Tacotron2(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    denoiser = tinfer.Denoiser(model, wcfg)
+    synth = lambda **kw: tinfer.synthesize(
+        tts, [UTTERANCE], cfg, vocoder="waveglow", vocoder_model=model,
+        vocoder_cfg=wcfg, max_steps=UTTERANCE_STEPS, fused=True, device=dev,
+        **kw)[0]
+    lat, peak, res = {}, {}, {}
+    for name, kw in (("waveglow", {}), ("waveglow+denoiser",
+                                        {"denoiser": denoiser})):
+        synth(**kw)  # warm-up: cuDNN's algorithm search
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(3):
+            res[name], ms = _timed(lambda: synth(**kw))
+            times.append(ms)
+        lat[name] = times
+        peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        _check_result(f"synthesize({name})", res[name], cfg,
+                      UTTERANCE_STEPS)
+        n = res[name].mel.shape[0]
+        if res[name].audio.shape[0] != n * cfg.hop_length or \
+                float(np.sqrt(np.mean(res[name].audio ** 2))) <= 0:
+            fail(f"synthesize({name}): {n} frames, audio "
+                 f"{res[name].audio.shape}")
+        bad = res[name]._replace(audio=res[name].audio.copy())
+        bad.audio[7] = np.nan
+        try:
+            _check_result("perturbed", bad, cfg, UTTERANCE_STEPS)
+        except RuntimeError:
+            pass
+        else:
+            fail(f"synthesize({name})'s check passes a non-finite sample")
+    if np.array_equal(res["waveglow"].audio, res["waveglow+denoiser"].audio):
+        fail("the Denoiser changed nothing")
+
+    # the vocoder alone on the utterance's mel: TF32 off and on
+    mel200 = torch.from_numpy(res["waveglow"].mel)[None].to(dev)
+    alone = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            out = waveglow.infer(model, mel200, wcfg)
+            alone[tf32] = (cuda_ms(lambda: waveglow.infer(model, mel200,
+                                                          wcfg), 5), out)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    tf32_gap = field_err(alone[True][1], alone[False][1])[1]
+    flops = _waveglow_flops(wcfg, 1, mel200.shape[1])
+    print(f"waveglow [{card}] synthesize(fused=True, bf16 Tacotron 2, "
+          f"max_steps={UTTERANCE_STEPS}, {res['waveglow'].mel.shape[0]} "
+          f"frames) with WaveGlow at sigma 0.666, host ms per call (3 warm "
+          f"calls): " + "; ".join(
+              f"{k} {', '.join(f'{t:.1f}' for t in v)} (peak "
+              f"{peak[k]:.2f} GiB)" for k, v in lat.items())
+          + f". WaveGlow alone on those frames ({flops / 1e12:.3f} TFLOP): "
+          f"cuDNN TF32 off {alone[False][0]:.2f} ms "
+          f"({flops / alone[False][0] / 1e9:.1f} TFLOP/s), on "
+          f"{alone[True][0]:.2f} ms ({flops / alone[True][0] / 1e9:.1f} "
+          f"TFLOP/s); the TF32 audio departs from the fp32 audio by "
+          f"{tf32_gap:.2e} of its largest value")
+    return model
+
+
+def _changed(before, module):
+    """Parameters of ``module`` that differ from ``before`` (a dict of
+    copies), and their count."""
+    return sum(not torch.equal(before[k], p)
+               for k, p in module.named_parameters())
+
+
+def _copies(module):
+    return {k: p.detach().clone() for k, p in module.named_parameters()}
+
+
+def vocoder_train_phase(cfg, dev, card, seed, root):
+    """Both vocoder trainers at full width on a 32-utterance tone corpus
+    (the trainer phase's kind), with the JAX tools' defaults: 3 WaveGlow
+    steps at B=8 on 64-mel segments, 3 HiFi-GAN V1 steps at B=16 on 32-mel
+    segments. Every step gives finite losses and changes every network
+    (HiFi-GAN: the generator and both discriminators); each trainer
+    writes a checkpoint. Returns (filelist, waveglow path, hifigan path)."""
+    from tacotron2_tpu_torch.audio.mel import MelConfig
+    from tacotron2_tpu_torch.data import TextMelDataset
+    from tacotron2_tpu_torch.models import waveglow
+    from tacotron2_tpu_torch.tools import train_demo
+    from tacotron2_tpu_torch.training import hifigan_trainer as ht
+    from tacotron2_tpu_torch.training import vocoder_trainer as vt
+    from tacotron2_tpu_torch.training.checkpoint import Checkpointer
+
+    filelist = train_demo.build_corpus(str(root / "corpus"), 32, seed=seed)
+    ds = TextMelDataset(filelist, cfg)
+    mel_cfg = MelConfig.from_config(cfg)
+    put = lambda b: vt.VocoderBatch(*(t.to(dev) for t in b))
+    paths = {}
+
+    wcfg = waveglow.WaveGlowConfig(n_mel_channels=cfg.n_mel_channels,
+                                   upsample_stride=cfg.hop_length)
+    state = vt.create_vocoder_state(
+        wcfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    batches = vt.segment_sampler(ds, mel_cfg, 64, 8, seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    wg_log = []
+    start = _copies(state.model)
+    for _ in range(3):
+        batch = put(next(batches))
+        before = _copies(state.model)
+        (state, loss), ms = _timed(lambda: vt.vocoder_train_step(
+            state, batch, wcfg))
+        n = _changed(before, state.model)
+        if not math.isfinite(float(loss)) or not n:
+            fail(f"WaveGlow step {state.step}: loss {float(loss)}, "
+                 f"{n} parameters changed")
+        wg_log.append((float(loss), ms, n))
+    # the first step moves only WN.end and the 1x1 weights (WN.end starts
+    # at zero, so nothing before it has a gradient yet); three move all
+    n_all = _changed(start, state.model)
+    if n_all != len(start):
+        fail(f"3 WaveGlow steps changed {n_all} of {len(start)} parameters")
+    wg_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    paths["waveglow"] = Checkpointer(str(root / "waveglow")).save(
+        state, wait=True)
+    flops = 3 * _waveglow_flops(wcfg, 8, 64)
+    del state
+
+    hcfg = hifigan.HiFiGANConfig(n_mel_channels=cfg.n_mel_channels)
+    state = ht.create_hifigan_state(
+        hcfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    batches = vt.segment_sampler(ds, mel_cfg, 32, 16, seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    hg_log = []
+    for _ in range(3):
+        batch = put(next(batches))
+        before = [_copies(m) for m in (state.generator, state.mpd,
+                                       state.msd)]
+        (state, losses), ms = _timed(lambda: ht.hifigan_train_step(
+            state, batch, hcfg, mel_cfg))
+        changed = [_changed(b, m) for b, m in zip(
+            before, (state.generator, state.mpd, state.msd))]
+        if not all(math.isfinite(float(x)) for x in losses) or \
+                not all(changed):  # the generator and both discriminators
+            fail(f"HiFi-GAN step {state.step}: losses {losses}, parameters "
+                 f"changed (generator, MPD, MSD) {changed}")
+        hg_log.append(([round(float(x), 4) for x in losses], ms))
+    hg_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    paths["hifigan"] = Checkpointer(str(root / "hifigan")).save(
+        state, wait=True)
+    del state
+    print(f"vocoder training [{card}] fp32, cuDNN TF32 off. WaveGlow B=8 x "
+          f"64 mels ({flops / 1e12:.2f} TFLOP a step by the forward count "
+          f"x 3): (nll, host ms, parameters changed of {len(start)}) "
+          + ", ".join(f"({x:.4f}, {t:.1f}, {n})" for x, t, n in wg_log)
+          + f", all changed after 3; peak {wg_peak:.2f} GiB. HiFi-GAN V1 "
+          f"B=16 x 32 mels: ((disc, "
+          f"adv, feature, mel L1), host ms) "
+          + ", ".join(f"({x}, {t:.1f})" for x, t in hg_log)
+          + f", peak {hg_peak:.2f} GiB; every step changed each network; "
+          f"checkpoints {[Path(p).name for p in paths.values()]}")
+    return filelist, paths["waveglow"], paths["hifigan"]
+
+
+CLI_COUNTED = ("import json, runpy, sys\n"
+               "from tacotron2_tpu_torch.kernels import decoder_step, "
+               "encoder_lstm, int8_matmul\n"
+               "runpy.run_module('tacotron2_tpu_torch.infer', "
+               "run_name='__main__', alter_sys=True)\n"
+               "i8 = sys.modules['tacotron2_tpu_torch.kernels.int8_matmul']\n"
+               "print('LAUNCHES ' + json.dumps({\n"
+               "    'encoder_lstm_fwd': encoder_lstm.bilstm_forward.launches,"
+               "\n    'decoder_step_chunk': "
+               "decoder_step.decoder_step_chunk.launches,\n"
+               "    'int8_matmul': i8.int8_matmul.launches}))\n")
+
+
+def _run_cli(argv, counted, timeout=300):
+    """``python -m tacotron2_tpu_torch.infer argv`` in a process of its own
+    from the repository's root; ``counted`` runs the module the same way
+    (runpy, as -m does) behind a line that prints its launch counts."""
+    cmd = ([sys.executable, "-c", CLI_COUNTED] if counted else
+           [sys.executable, "-m", "tacotron2_tpu_torch.infer"]) + argv
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"the infer CLI exited {out.returncode}: {out.stderr[-3000:]}")
+    launches = None
+    for line in out.stdout.splitlines():
+        if line.startswith("LAUNCHES "):
+            launches = json.loads(line[len("LAUNCHES "):])
+    return wall, launches
+
+
+def _check_cli_outputs(prefix, n_texts, cfg, vocoder):
+    """Each text's mel (n_mels, T) and WAV: the rate, T hops of samples
+    (Griffin-Lim: T - 1 for the batch's longest row, whose inverse STFT
+    drops the centring pad, as the JAX package's does), finite, RMS above
+    0. Returns the frame counts."""
+    import scipy.io.wavfile
+    frames = []
+    for i in range(n_texts):
+        mel = np.load(f"{prefix}_{i}_mel.npy")
+        if mel.shape[0] != cfg.n_mel_channels or not np.isfinite(mel).all():
+            fail(f"{prefix}_{i}_mel.npy: {mel.shape}")
+        n = mel.shape[1]
+        sr, wav = scipy.io.wavfile.read(f"{prefix}_{i}.wav")
+        hops = (n - 1, n) if vocoder == "griffin_lim" else (n,)
+        rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+        if sr != cfg.sampling_rate or wav.ndim != 1 or not rms > 0 or \
+                wav.shape[0] not in [h * cfg.hop_length for h in hops]:
+            fail(f"{prefix}_{i}.wav: rate {sr}, {wav.shape} samples for {n} "
+                 f"frames, rms {rms}")
+        frames.append(n)
+    return frames
+
+
+HTTP_KERNELS = ("encoder_cluster_kernel", "persistent_chunk_kernel")
+
+
+def _post(url, payload, timeout=300):
+    """The response of a JSON POST; a server error fails with its body."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        return urllib.request.urlopen(req, timeout=timeout)
+    except urllib.error.HTTPError as e:
+        fail(f"{url} {payload}: HTTP {e.code} {e.read()[:2000]!r}")
+
+
+def _post_json(url, payload):
+    with _post(url, payload) as r:
+        return json.load(r)
+
+
+def _serve(srv):
+    import threading
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return f"http://127.0.0.1:{srv.server_address[1]}", thread
+
+
+def _shutdown(srv, thread):
+    srv.shutdown()
+    srv.server_close()
+    srv.RequestHandlerClass.synthesizer.close()
+    thread.join(timeout=60)
+
+
+def entry_points_phase(cfg, dev, card, seed, root, wg_path, hg_path):
+    """The front doors at full width: a checkpoint of a seeded model, the
+    infer CLI in processes of its own (Griffin-Lim on two texts by
+    ``python -m``; HiFi-GAN with --fused and WaveGlow with --int8 from the
+    vocoder trainers' checkpoints, run as -m runs it behind a launch-count
+    line), every WAV checked; then ``make_server`` on 127.0.0.1, port 0,
+    driven by urllib: /healthz, 8 concurrent /synthesize mels (held
+    against the server's ``BatchingSynthesizer`` called directly), a WAV
+    for Griffin-Lim and WaveGlow, /stream as NDJSON, and from a HiFi-GAN
+    server a WAV and /stream as PCM. Rows 3, 5 and 6 counted by their
+    wrappers and by torch.profiler while the servers serve. Returns the
+    (CLI, server) launch counts."""
+    import concurrent.futures
+    import urllib.request
+    from tacotron2_tpu_torch import http_server
+    from tacotron2_tpu_torch.training.checkpoint import Checkpointer
+
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(seed),
+                         trainable=True).to(dev)
+    ckpt = Checkpointer(str(root / "tacotron2")).save(
+        tstate.state_for(model, cfg), wait=True)
+    out = root / "cli"
+    out.mkdir()
+    common = ["-c", ckpt, "--hparams", f"max_decoder_steps="
+              f"{UTTERANCE_STEPS}"]
+    runs = (("griffin_lim", False, [UTTERANCE, SHORT_TEXTS[1]], []),
+            ("hifigan", True, [UTTERANCE], ["--vocoder_checkpoint", hg_path,
+                                            "--fused"]),
+            ("waveglow", True, [UTTERANCE], ["--vocoder_checkpoint", wg_path,
+                                             "--int8"]))
+    cli = {}
+    for vocoder, counted, texts, extra in runs:
+        prefix = str(out / vocoder)
+        argv = common + ["-o", prefix, "--vocoder", vocoder, *extra]
+        for t in texts:
+            argv += ["-t", t]
+        wall, launches = _run_cli(argv, counted)
+        frames = _check_cli_outputs(prefix, len(texts), cfg, vocoder)
+        cli[vocoder] = (wall, frames, launches, extra[2:])
+    must = {"hifigan": ("encoder_lstm_fwd", "decoder_step_chunk"),
+            "waveglow": ("encoder_lstm_fwd", "int8_matmul")}
+    for vocoder, names in must.items():
+        for name in names:
+            if not cli[vocoder][2][name]:
+                fail(f"infer CLI ({vocoder}, {cli[vocoder][3]}) never "
+                     f"launched the {name} kernel: {cli[vocoder][2]}")
+    print(f"infer CLI [{card}] python -m tacotron2_tpu_torch.infer, default "
+          f"config (bf16), max_decoder_steps={UTTERANCE_STEPS}, PyTorch's "
+          f"default TF32 settings: " + "; ".join(
+              f"--vocoder {v} {' '.join(f)}: {w:.1f} s wall, frames {n}, "
+              f"launches {c}" for v, (w, n, c, f) in cli.items())
+          + "; every WAV at the rate, frames x hop long (Griffin-Lim's "
+          "longest row one hop less), finite, RMS above 0")
+
+    serve_cfg = cfg.replace(max_decoder_steps=UTTERANCE_STEPS)
+    served = tinfer.load_model(ckpt, cfg, device=dev)
+    wg_model, wg_cfg = tinfer.load_vocoder("waveglow", wg_path, cfg,
+                                           device=dev)
+    hg_model, hg_cfg = tinfer.load_vocoder("hifigan", hg_path, cfg,
+                                           device=dev)
+    srv = http_server.make_server(served, serve_cfg, port=0, max_batch=8,
+                                  vocoder_kind="waveglow", vocoder=wg_model,
+                                  vocoder_cfg=wg_cfg, device=dev)
+    url, thread = _serve(srv)
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            if json.load(r) != {"status": "ok"}:
+                fail("/healthz")
+        with _post(url + "/synthesize", {"text": SHORT_TEXTS[0]}) as r:
+            r.read()  # warm-up
+        texts = SHORT_TEXTS[:8]
+
+        def serve_all():
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                futs = [pool.submit(_post_json, url + "/synthesize",
+                                    {"text": t}) for t in texts]
+                bodies = [f.result() for f in futs]
+            t_mel = time.perf_counter() - t0
+            wavs = {}
+            for v in ("waveglow", "griffin_lim"):
+                t1 = time.perf_counter()
+                with _post(url + "/synthesize", {"text": UTTERANCE,
+                                                 "vocoder": v}) as r:
+                    wavs[v] = (r.headers["Content-Type"], r.read(),
+                               time.perf_counter() - t1)
+            t2 = time.perf_counter()
+            with _post(url + "/stream", {"text": UTTERANCE}) as r:
+                kind = r.headers["Content-Type"]
+                first = r.readline()
+                t_first = time.perf_counter() - t2
+                lines = [first] + r.read().splitlines()
+            t_stream = time.perf_counter() - t2
+            return bodies, t_mel, wavs, kind, lines, t_first, t_stream
+
+        serve_all()  # warm-up: each vocoder's and the streamer's shapes
+        for fn in UTTERANCE_KERNELS.values():
+            fn.launches = 0
+        plain0 = sum(f.calls for f in UTTERANCE_PLAIN)
+        holder = []
+        names = profiled_kernels(lambda: holder.append(serve_all()))
+        bodies, t_mel, wavs, kind, lines, t_first, t_stream = holder[0]
+        counts = {k: UTTERANCE_KERNELS[k].launches for k in
+                  ("encoder_lstm_fwd", "decoder_chunk", "decoder_step_chunk")}
+        if sum(f.calls for f in UTTERANCE_PLAIN) != plain0:
+            fail("the server ran a plain version on the card")
+        for name, c in counts.items():
+            if not c:
+                fail(f"the server never launched the {name} kernel")
+        prof = {k: sum(n == k for n in names) for k in HTTP_KERNELS}
+        if not all(prof.values()):
+            fail(f"torch.profiler saw the server launch {prof}")
+        direct = srv.RequestHandlerClass.synthesizer.synthesize(texts)
+        worst = 0.0
+        for text, body, (mel, _, n) in zip(texts, bodies, direct):
+            got = torch.tensor(body["mel"])
+            if body["n_frames"] != n or tuple(got.shape) != mel.shape:
+                fail(f"/synthesize {text!r}: {body['n_frames']} frames, "
+                     f"BatchingSynthesizer {n}")
+            worst = max(worst, field_err(got, torch.from_numpy(mel))[1])
+        if worst > SERVE_MEL_REL:
+            fail(f"/synthesize mels depart from BatchingSynthesizer's by "
+                 f"{worst} of their largest value (limit {SERVE_MEL_REL})")
+        for v, (ctype, body, _) in wavs.items():
+            if ctype != "audio/wav" or body[:4] != b"RIFF":
+                fail(f"/synthesize {v}: {ctype}")
+        events = [json.loads(x) for x in lines if x.strip()]
+        n_stream = sum(e["n_frames"] for e in events)
+        if kind != "application/x-ndjson" or not events[-1]["done"] or \
+                not n_stream or not all(np.isfinite(e["mel"]).all()
+                                        for e in events):
+            fail(f"/stream NDJSON: {kind}, {len(events)} events")
+    finally:
+        _shutdown(srv, thread)
+
+    srv = http_server.make_server(served, serve_cfg, port=0, max_batch=8,
+                                  vocoder_kind="hifigan", vocoder=hg_model,
+                                  vocoder_cfg=hg_cfg, chunk_steps=32,
+                                  device=dev)
+    url, thread = _serve(srv)
+    try:
+        with _post(url + "/synthesize", {"text": UTTERANCE}) as r:
+            n_frames = json.load(r)["n_frames"]
+        for path, payload in (("/synthesize", {"text": UTTERANCE,
+                                               "vocoder": "hifigan"}),
+                              ("/stream", {"text": UTTERANCE})):
+            with _post(url + path, payload) as r:  # warm-up
+                r.read()
+        for fn in UTTERANCE_KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with _post(url + "/synthesize", {"text": UTTERANCE,
+                                         "vocoder": "hifigan"}) as r:
+            hg_wav = (r.headers["Content-Type"], r.read())
+        t_hg = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _post(url + "/stream", {"text": UTTERANCE}) as r:
+            pcm_kind = r.headers["Content-Type"]
+            first = r.read(2 * hg_cfg.hop_length)
+            t_pcm_first = time.perf_counter() - t0
+            pcm = first + r.read()
+        t_pcm = time.perf_counter() - t0
+        counts["decoder_step_chunk"] += \
+            UTTERANCE_KERNELS["decoder_step_chunk"].launches
+        counts["encoder_lstm_fwd"] += \
+            UTTERANCE_KERNELS["encoder_lstm_fwd"].launches
+        counts["decoder_chunk"] += UTTERANCE_KERNELS["decoder_chunk"].launches
+        # the same work on the server's own objects, without HTTP: the
+        # batcher from this thread; HiFi-GAN on this (warm) thread and on a
+        # fresh one, where PyTorch builds cuDNN's plans again; the runner
+        # (its own long-lived thread) called from a fresh thread, as a
+        # request's handler calls it
+        import threading
+        handler = srv.RequestHandlerClass
+        (mel, _, _), t_submit = _timed(
+            lambda: handler.synthesizer.submit(UTTERANCE).result())
+        mel_t = torch.from_numpy(mel)[None].to(dev)
+        vocode = lambda: hifigan.generator(hg_model, mel_t, hg_cfg).cpu()
+        vocode()
+        _, t_voc = _timed(vocode)
+
+        def on_fresh_thread(fn):
+            worker = threading.Thread(target=fn)
+            t0 = time.perf_counter()
+            worker.start()
+            worker.join()
+            return (time.perf_counter() - t0) * 1e3
+        t_voc_thread = on_fresh_thread(vocode)
+        t_runner_thread = on_fresh_thread(
+            lambda: handler.vocoder_runner(mel))
+    finally:
+        _shutdown(srv, thread)
+    mel_json = {"mel": direct[0][0].tolist()}
+    t0 = time.perf_counter()
+    body = json.dumps(mel_json).encode()
+    t_dumps = time.perf_counter() - t0
+    json.loads(body)
+    t_json = (time.perf_counter() - t0) * 1e3
+    samples = np.frombuffer(pcm, "<i2")
+    if hg_wav[0] != "audio/wav" or hg_wav[1][:4] != b"RIFF":
+        fail(f"/synthesize hifigan: {hg_wav[0]}")
+    if not pcm_kind.startswith("audio/L16") or \
+            samples.shape[0] != n_frames * hg_cfg.hop_length or \
+            not np.abs(samples).max() > 0:
+        fail(f"/stream PCM: {pcm_kind}, {samples.shape[0]} samples for "
+             f"{n_frames} frames")
+    print(f"http server [{card}] make_server on 127.0.0.1 (bf16, max_batch "
+          f"8, max_decoder_steps {UTTERANCE_STEPS}; cuDNN TF32 off in this "
+          f"process): 8 concurrent /synthesize mels in {t_mel * 1e3:.1f} ms, "
+          f"against BatchingSynthesizer worst {worst:.2e} of the largest "
+          f"value (limit {SERVE_MEL_REL}); WAV " + ", ".join(
+              f"{v} {len(b) - 44} bytes in {t * 1e3:.1f} ms"
+              for v, (_, b, t) in wavs.items())
+          + f"; /stream NDJSON {len(events)} events, {n_stream} frames, "
+          f"first line after {t_first * 1e3:.1f} ms, all after "
+          f"{t_stream * 1e3:.1f} ms; HiFi-GAN WAV in {t_hg * 1e3:.1f} ms; "
+          f"/stream PCM {samples.shape[0]} samples = {n_frames} frames x hop, "
+          f"first bytes after {t_pcm_first * 1e3:.1f} ms, all after "
+          f"{t_pcm * 1e3:.1f} ms (each after a warm-up request); without "
+          f"HTTP: BatchingSynthesizer.submit(...).result() {t_submit:.1f} "
+          f"ms; HiFi-GAN on the mel {t_voc:.1f} ms on this thread, "
+          f"{t_voc_thread:.1f} ms on a fresh thread; the VocoderRunner from "
+          f"a fresh thread {t_runner_thread:.1f} ms; one "
+          f"{direct[0][0].shape[0]}-frame mel's JSON encoded and decoded on "
+          f"the host in {t_json:.1f} ms ({t_dumps * 1e3:.1f} ms to encode); "
+          f"launches (wrappers, both servers) {counts}; "
+          f"torch.profiler kernels while the first served {prof}")
+    cli_counts = {k: sum((c[2] or {}).get(k, 0) for c in cli.values())
+                  for k in ("encoder_lstm_fwd", "decoder_step_chunk",
+                            "int8_matmul")}
+    return cli_counts, counts
+
+
+AUDIO_BATCH_SHAPE = dict(B=32, T_in=32, T_out=256)  # the tone demo's
+# Row 8's targets against the torch.matmul form, as a share of the largest
+# linear mel value: tones leave bins near the 1e-5 floor, where the log
+# turns the two fp32 forms' ~1e-7 of the frame's peak into ~1e-3.
+AUDIO_MEL_REL = 3e-5
+
+
+def _linear_share(a, b):
+    """max |exp(a) - exp(b)| / max |exp(b)| of two log-mel tensors."""
+    ea, eb = a.double().exp(), b.double().exp()
+    return float((ea - eb).abs().max() / eb.abs().max())
+
+
+def audio_batch_phase(dev, card, seed, filelist):
+    """Training from raw audio at the tone demo's shape (B=32, T_in 32,
+    T_out 256, bf16, dropout on): the targets with the fused mel kernel
+    (row 8) against the two ``torch.matmul`` products, then 3
+    ``train_step_from_audio`` steps, each with a finite loss and applied;
+    row 8 launches once a step, rows 1-4 launch, and no plain version
+    runs."""
+    import scipy.io.wavfile
+    from tacotron2_tpu_torch.data.dataset import load_filelist
+    from tacotron2_tpu_torch.tools import train_demo
+    from tacotron2_tpu_torch.training import audio_batch as ab
+
+    cfg = train_demo.demo_config(hparams=f"seed={seed}")
+    B, t_text, t_mel = (AUDIO_BATCH_SHAPE[k] for k in ("B", "T_in", "T_out"))
+    items = []
+    entries = load_filelist(filelist)
+    for i in range(B):
+        path, text = entries[i % len(entries)][:2]
+        _, wav = scipy.io.wavfile.read(path)
+        items.append((np.asarray(text_to_sequence(text, cfg.text_cleaners)),
+                      wav.astype(np.float32) / 32768.0))
+    batch = ab.AudioBatch(*(t.to(dev) for t in ab.pad_audio_batch(
+        items, t_text, t_mel, cfg.hop_length)))
+    fused = ab.mel_targets_from_audio(batch, cfg, backend="cuda")
+    plain = ab.mel_targets_from_audio(batch, cfg, backend="torch")
+    if not torch.equal(fused.gate_target, plain.gate_target) \
+            or not torch.equal(fused.mel_lengths, plain.mel_lengths):
+        fail("mel_targets_from_audio: cuda and torch give other gates or "
+             "lengths")
+    share = _linear_share(fused.mel, plain.mel)
+    log_err = (fused.mel - plain.mel).abs()
+    at = int(log_err.argmax())
+    log_at = (float(log_err.flatten()[at]), float(plain.mel.flatten()[at]))
+    if share > AUDIO_MEL_REL:
+        fail(f"mel_targets_from_audio: cuda against torch {share} of the "
+             f"largest linear mel value, beyond {AUDIO_MEL_REL}")
+    bad = fused.mel.clone()
+    peak = np.unravel_index(int(plain.mel.argmax()), tuple(plain.mel.shape))
+    bad[peak] += math.log1p(10 * AUDIO_MEL_REL)
+    if _linear_share(bad, plain.mel) <= AUDIO_MEL_REL:
+        fail("the targets' comparison passes a perturbed mel")
+    state = tstate.create_train_state(
+        cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state, _, _ = ab.train_step_from_audio(state, batch, cfg, gen)  # warm-up
+    kernels = {**TRAIN_KERNELS,
+               "mel_spectrogram_fused": mk.mel_spectrogram_fused}
+    plains = PLAIN_VERSIONS + (mk.mel_spectrogram_fused_plain,)
+    for fn in kernels.values():
+        fn.launches = 0
+    plain0 = sum(f.calls for f in plains)
+    log = []
+    for _ in range(3):
+        (state, m, _), ms = _timed(lambda: ab.train_step_from_audio(
+            state, batch, cfg, gen))
+        if not math.isfinite(float(m.loss)) or float(m.applied) != 1.0:
+            fail(f"train_step_from_audio: loss {float(m.loss)}, applied "
+                 f"{float(m.applied)}")
+        log.append((float(m.loss), ms))
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    if sum(f.calls for f in plains) != plain0:
+        fail("train_step_from_audio ran a plain version on the card")
+    if counts["mel_spectrogram_fused"] != 3 or not all(counts.values()):
+        fail(f"train_step_from_audio launches over 3 steps: {counts}")
+    print(f"audio batches [{card}] B={B} T_in {t_text} T_out {t_mel} bf16, "
+          f"dropout on: targets cuda against torch {share:.2e} of the "
+          f"largest linear mel value (limit {AUDIO_MEL_REL}); in the log "
+          f"domain max |err| {log_at[0]:.2e}, at a log mel of "
+          f"{log_at[1]:.2f}; gates and lengths equal, perturbed mel "
+          f"rejected; 3 train_step_from_audio (loss, host ms): "
+          + ", ".join(f"({x:.4f}, {t:.1f})" for x, t in log)
+          + f"; launches {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2496,6 +3211,17 @@ def main() -> int:
     enc["training_step_with_plain_version"] = encoder_swap_phase(
         cfg, dev, card, seed)
     step_check_phase(cfg, dev, card, seed)
+    BUILD.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="vocoders_", dir=BUILD))
+    try:
+        waveglow_phase(cfg, dev, card, seed)
+        filelist, wg_path, hg_path = vocoder_train_phase(cfg, dev, card,
+                                                         seed, root)
+        cli_counts, http_counts = entry_points_phase(
+            cfg, dev, card, seed, root, wg_path, hg_path)
+        audio_counts = audio_batch_phase(dev, card, seed, filelist)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     enc["launches"] = counts["encoder_lstm_fwd"]
     enc["launches_training"] = train_counts["encoder_lstm_fwd"]
@@ -2510,6 +3236,15 @@ def main() -> int:
     enc["launches_one_utterance"] = utt["offline_hifigan"]["encoder_lstm_fwd"]
     int8["launches"] = utt["quantized"]["int8_matmul"]
     mel["launches"] = utt["front_end"]["mel_spectrogram_fused"]
+    enc["launches_http_server"] = http_counts["encoder_lstm_fwd"]
+    dec["launches_http_server"] = http_counts["decoder_chunk"]
+    step["launches_http_server"] = http_counts["decoder_step_chunk"]
+    for k in (scan_fwd, scan_bwd, enc, enc_bwd):
+        k["launches_audio_batch"] = audio_counts[k["name"]]
+    mel["launches_audio_batch"] = audio_counts["mel_spectrogram_fused"]
+    enc["launches_infer_cli"] = cli_counts["encoder_lstm_fwd"]
+    step["launches_infer_cli"] = cli_counts["decoder_step_chunk"]
+    int8["launches_infer_cli"] = cli_counts["int8_matmul"]
     print(json.dumps({"kernels": [scan_fwd, scan_bwd, enc, enc_bwd, dec,
                                   step, int8, mel]}))
     print(json.dumps({"ok": True, "device": {

@@ -74,7 +74,12 @@ def mel_spectrogram(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     cos_b, sin_b = dft_basis(cfg.stft, y.device)
     real = frames @ cos_b
     imag = frames @ sin_b
-    magnitude = torch.sqrt(real * real + imag * imag)
+    power = real * real + imag * imag
+    # sqrt(power), with a zero gradient where the power is 0: the plain
+    # sqrt's is inf there, which makes NaN of a differentiated mel (the
+    # HiFi-GAN trainer's mel L1) when a bin of generated audio is silent
+    zero = power == 0
+    magnitude = torch.where(zero, 0.0, torch.sqrt(power.masked_fill(zero, 1)))
     mel = magnitude @ mel_weights(cfg, y.device)
     return dynamic_range_compression(mel).transpose(1, 2)
 

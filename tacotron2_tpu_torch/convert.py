@@ -11,7 +11,10 @@ package's ``quantize_for_serving``) comes across as the buffers of a
 ``QuantizedLSTMCell`` (``<cell>.w_q``, ``.scale``, ``.bias``), which a model
 from ``models.tacotron2.quantize_for_serving`` loads.
 ``hifigan_state_dict_from_jax(params, cfg)`` does the same for the HiFi-GAN
-generator (``models.hifigan.Generator``).
+generator (``models.hifigan.Generator``),
+``discriminator_state_dicts_from_jax`` for its two discriminators, and
+``waveglow_state_dict_from_jax`` for the WaveGlow flow
+(``models.waveglow.WaveGlow``).
 
 Layouts (JAX -> torch):
 - dense kernel (in, out) -> Linear weight (out, in)            [transpose]
@@ -20,6 +23,9 @@ Layouts (JAX -> torch):
 - batchnorm scale/offset -> weight/bias; running stats from ``stats``
 - transposed-conv kernel (k, in, out), which ``jax.lax.conv_transpose``
   applies unflipped -> ConvTranspose1d weight (in, out, k)  [flip k, transpose]
+- conv2d kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw)
+- WaveGlow 1x1 w, applied as x @ w -> conv weight W = w^T (c, c, 1); the
+  per-layer cond convs -> one cond_layer, their outputs concatenated
 """
 
 from __future__ import annotations
@@ -125,4 +131,57 @@ def hifigan_state_dict_from_jax(params: Dict, cfg) -> Dict[str, torch.Tensor]:
                 for d, p in enumerate(block[name]):
                     conv(f"resblocks.{i * n_res + j}.{name}.{d}", p)
     conv("conv_post", params["conv_post"])
+    return _tensors(out)
+
+
+def discriminator_state_dicts_from_jax(mpd, msd, cfg):
+    """The JAX package's HiFi-GAN discriminator params (``init_mpd``,
+    ``init_msd`` lists) -> the state_dicts of
+    ``models.hifigan.MultiPeriodDiscriminator(cfg)`` and
+    ``MultiScaleDiscriminator(cfg)``."""
+    def one(params, conv):
+        out: Dict[str, np.ndarray] = {}
+        for i, p in enumerate(params):
+            for j, c in enumerate(p["convs"]):
+                conv(out, f"discriminators.{i}.convs.{j}", c)
+            conv(out, f"discriminators.{i}.conv_post", p["conv_post"])
+        return _tensors(out)
+
+    def conv2d(out, prefix, p):
+        out[f"{prefix}.weight"] = _t(p["kernel"]).transpose(3, 2, 0, 1)
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+    def conv1d(out, prefix, p):
+        out[f"{prefix}.weight"] = _t(p["kernel"]).transpose(2, 1, 0)
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+    return one(mpd, conv2d), one(msd, conv1d)
+
+
+def waveglow_state_dict_from_jax(params: Dict, cfg
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX package's WaveGlow params -> the state_dict of
+    ``models.waveglow.WaveGlow(cfg)`` (``cfg`` a ``WaveGlowConfig``)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def conv(prefix, p):
+        out[f"{prefix}.weight"] = _t(p["kernel"]).transpose(2, 1, 0)
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+    up = params["upsample"]
+    out["upsample.weight"] = _t(up["kernel"])[::-1].transpose(1, 2, 0)
+    out["upsample.bias"] = _t(up["bias"])
+    for i, flow in enumerate(params["flows"]):
+        out[f"convinv.{i}.conv.weight"] = _t(flow["inv1x1"]["w"]).T[:, :, None]
+        wn, pre = flow["wn"], f"WN.{i}"
+        conv(f"{pre}.start", wn["start"])
+        for j, layer in enumerate(wn["layers"]):
+            conv(f"{pre}.in_layers.{j}", layer["in_conv"])
+            conv(f"{pre}.res_skip_layers.{j}", layer["res_skip"])
+        conds = [layer["cond_conv"] for layer in wn["layers"]]
+        out[f"{pre}.cond_layer.weight"] = np.concatenate(
+            [_t(c["kernel"]).transpose(2, 1, 0) for c in conds], axis=0)
+        out[f"{pre}.cond_layer.bias"] = np.concatenate(
+            [_t(c["bias"]) for c in conds])
+        conv(f"{pre}.end", wn["end"])
     return _tensors(out)

@@ -33,11 +33,15 @@ import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.kernels import _build
 from tacotron2_tpu_torch.kernels.lstm_layout import (MMA_UNITS, from_blocks,
-                                                     to_blocks, to_mma_tiles)
+                                                     pad_cols,
+                                                     pad_core_weights,
+                                                     padded_width, to_blocks,
+                                                     to_mma_tiles)
 
 NEG = -1e30       # additive attention mask (the TPU kernels' -inf stand-in)
 GATE_MASK = 1e3   # gate value of finished rows (reference model.py:495)
@@ -102,36 +106,49 @@ class ChunkOut(NamedTuple):
 
 
 def pack_batch_decoder_params(model, dtype: torch.dtype) -> BatchDecoderParams:
-    """Pack a ``models.tacotron2.Tacotron2``'s decoder for the chunk."""
+    """Pack a ``models.tacotron2.Tacotron2``'s decoder for the chunk. LSTM
+    widths that are not whole blocks of ``_DEC_UNITS`` are padded with zero
+    units (``lstm_layout.pad_core_weights``; ``_decode_chunk`` pads the
+    carry to match and slices it back)."""
     dec = model.decoder
     att = dec.attention_layer
     if not hasattr(dec.attention_rnn, "weight_ih"):
         raise ValueError("the decoder kernels need unquantized LSTM weights "
                          "(a quantized model decodes through infer)")
     with torch.no_grad():
-        def lstm(cell):
-            w = torch.cat([cell.weight_ih, cell.weight_hh], dim=1).t()
+        ar, dr = dec.attention_rnn, dec.decoder_rnn
+        a, d = ar.weight_hh.shape[1], dr.weight_hh.shape[1]
+        conv = att.location_layer.location_conv.conv.weight     # (F, 2, ks)
+        dense = att.location_layer.location_dense.linear_layer.weight  # (D, F)
+        (wia, wha, bia, bha, wq, _, _, _, wid, whd, bid, bhd) = \
+            pad_core_weights((ar.weight_ih, ar.weight_hh, ar.bias_ih,
+                              ar.bias_hh, att.query_layer.linear_layer.weight,
+                              None, None, None, dr.weight_ih, dr.weight_hh,
+                              dr.bias_ih, dr.bias_hh), a, d, _DEC_UNITS)
+
+        def lstm(w_ih, w_hh, b_ih, b_hh):
+            w = torch.cat([w_ih, w_hh], dim=1).t()
             wf = None
             if (dtype == torch.bfloat16 and w.shape[0] % 16 == 0
                     and w.shape[1] % (4 * MMA_UNITS) == 0):
                 wf = to_mma_tiles(w.to(dtype))
             return (to_blocks(w.to(dtype), _DEC_UNITS),
-                    (cell.bias_ih + cell.bias_hh).float().contiguous(), wf)
-        w1, b1, w1f = lstm(dec.attention_rnn)
-        w2, b2, w2f = lstm(dec.decoder_rnn)
-        conv = att.location_layer.location_conv.conv.weight     # (F, 2, ks)
-        dense = att.location_layer.location_dense.linear_layer.weight  # (D, F)
+                    (b_ih + b_hh).float().contiguous(), wf)
+        w1, b1, w1f = lstm(wia, wha, bia, bha)
+        w2, b2, w2f = lstm(wid, whd, bid, bhd)
         k2 = torch.einsum("fck,Df->kcD", conv.float(), dense.float())
         proj = dec.linear_projection.linear_layer
         gate = dec.gate_layer.linear_layer
-        wpe = torch.cat([proj.weight, gate.weight], dim=0).t()
+        # the projection and gate read [dec_h ; ctx]: zero rows for the
+        # decoder LSTM's added units
+        wpe = pad_cols(torch.cat([proj.weight, gate.weight], dim=0), d,
+                       padded_width(d, _DEC_UNITS) - d).t()
         bpe = torch.cat([proj.bias, gate.bias]).float()
         as_w = lambda x: x.to(dtype).contiguous()
         return BatchDecoderParams(
             pre1=as_w(dec.prenet.layers[0].linear_layer.weight.t()),
             pre2=as_w(dec.prenet.layers[1].linear_layer.weight.t()),
-            w1=w1, b1=b1, w2=w2, b2=b2,
-            wq=as_w(att.query_layer.linear_layer.weight.t()),
+            w1=w1, b1=b1, w2=w2, b2=b2, wq=as_w(wq.t()),
             k2=as_w(k2), v=as_w(att.v.linear_layer.weight[0]),
             wpe=as_w(wpe), bpe=bpe.contiguous(), w1f=w1f, w2f=w2f)
 
@@ -156,7 +173,8 @@ def kernel_limits(cfg: Tacotron2Config, t_in: int,
     return _limits(torch.device(device), t_in,
                    cfg.n_mel_channels * cfg.n_frames_per_step,
                    cfg.prenet_dim, cfg.encoder_embedding_dim,
-                   cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
+                   padded_width(cfg.attention_rnn_dim, _DEC_UNITS),
+                   padded_width(cfg.decoder_rnn_dim, _DEC_UNITS),
                    cfg.attention_dim, cfg.attention_location_kernel_size)
 
 
@@ -395,7 +413,11 @@ def _decode_chunk(fp, carry, inputs, cfg, chunk_steps, keep_masks,
     r = cfg.n_frames_per_step
     s = carry.state
     f32 = lambda x: x.float().contiguous()
-    cc = ChunkCarry(f32(s.att_h), f32(s.att_c), f32(s.dec_h), f32(s.dec_c),
+    a, d = s.att_h.shape[1], s.dec_h.shape[1]
+    # the pack's added zero units (pack_batch_decoder_params) carry zeros
+    pa = lambda x: F.pad(f32(x), (0, fp.w1.shape[0] * _DEC_UNITS - a))
+    pd = lambda x: F.pad(f32(x), (0, fp.w2.shape[0] * _DEC_UNITS - d))
+    cc = ChunkCarry(pa(s.att_h), pa(s.att_c), pd(s.dec_h), pd(s.dec_c),
                     f32(s.att_weights), f32(s.att_weights_cum),
                     f32(s.att_context), f32(carry.prev_mel),
                     carry.finished.int().contiguous(),
@@ -412,7 +434,8 @@ def _decode_chunk(fp, carry, inputs, cfg, chunk_steps, keep_masks,
     c = out.carry
     new_carry = carry._replace(
         t=int(carry.t) + chunk_steps,
-        state=s._replace(att_h=c.h1, att_c=c.c1, dec_h=c.h2, dec_c=c.c2,
+        state=s._replace(att_h=c.h1[:, :a], att_c=c.c1[:, :a],
+                         dec_h=c.h2[:, :d], dec_c=c.c2[:, :d],
                          att_weights=c.w, att_weights_cum=c.wc,
                          att_context=c.ctx),
         prev_mel=c.prev, finished=c.fin.bool(), lengths=c.lens)

@@ -18,9 +18,15 @@ as such column tiles of 32. The persistent decoder chunk
 instruction's fragment order (``to_mma_tiles``); the encoder's cluster
 kernel (``csrc/encoder_lstm.cu``) stages its block's rows of the
 block-major slabs of 4 units in shared memory.
+
+The decoder kernels take LSTM widths in whole blocks of 8 units; a decoder
+of other widths is padded with zero units first (``pad_core_weights``),
+which changes none of its outputs.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -100,3 +106,83 @@ def from_mma_tiles(wm: torch.Tensor) -> torch.Tensor:
     wt[:, :, row, kk] = wm
     wt = wt.permute(0, 2, 1, 3).reshape(ng, 4, units, nk * 16)
     return wt.permute(1, 0, 2, 3).reshape(4 * ng * units, nk * 16).t()
+
+
+# ------------------------------------------- widths not in whole blocks
+
+def padded_width(n: int, units: int) -> int:
+    """n rounded up to whole blocks of ``units``."""
+    return -(-n // units) * units
+
+
+def pad_units(w: torch.Tensor, h: int, hp: int) -> torch.Tensor:
+    """(4h, ...) gate-major rows -> (4hp, ...), zero rows for the units
+    added to each gate."""
+    if hp == h:
+        return w
+    out = w.new_zeros(4, hp, *w.shape[1:])
+    out[:, :h] = w.reshape(4, h, *w.shape[1:])
+    return out.reshape(4 * hp, *w.shape[1:])
+
+
+def unpad_units(g: torch.Tensor, h: int) -> torch.Tensor:
+    """``pad_units`` undone on a gradient: the real units' rows."""
+    hp = g.shape[0] // 4
+    if hp == h:
+        return g
+    return g.reshape(4, hp, *g.shape[1:])[:, :h].reshape(4 * h, *g.shape[1:])
+
+
+def pad_cols(w: torch.Tensor, at: int, n: int) -> torch.Tensor:
+    """w with ``n`` zero columns inserted before column ``at``."""
+    if n == 0:
+        return w
+    z = w.new_zeros(w.shape[0], n)
+    return torch.cat([w[:, :at], z, w[:, at:]], dim=1)
+
+
+def drop_cols(g: torch.Tensor, at: int, n: int) -> torch.Tensor:
+    """``pad_cols`` undone on a gradient."""
+    if n == 0:
+        return g
+    return torch.cat([g[:, :at], g[:, at + n:]], dim=1)
+
+
+def pad_core_weights(weights, a: int, d: int, units: int
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The decoder core's twelve weights (the attention LSTM's w_ih, w_hh,
+    b_ih, b_hh; query (datt, A), v, location conv, location dense; the
+    decoder LSTM's four, as ``models/decoder_vjp.core_weights``) with the
+    attention LSTM padded from ``a`` units to ``padded_width(a, units)``
+    and the decoder LSTM from ``d`` likewise: zero rows for the added units
+    in every gate of w_ih, w_hh and both biases, and zero columns where a
+    weight reads an added unit's h (the attention LSTM's w_hh, the decoder
+    LSTM's w_ih and w_hh, the query). An added unit's gates are 0 at every
+    step, so it keeps c = 0.5 c + 0.5 tanh(0) = 0 and h = 0.5 tanh(0) = 0
+    exactly, and its h meets only zero columns: the real units compute
+    what the unpadded core computes, forward and backward. The same
+    weights are returned when both widths are whole blocks."""
+    ap, dp = padded_width(a, units), padded_width(d, units)
+    wia, wha, bia, bha, wq, v, conv, dense, wid, whd, bid, bhd = weights
+    return (pad_units(wia, a, ap),
+            pad_units(pad_cols(wha, a, ap - a), a, ap),
+            pad_units(bia, a, ap), pad_units(bha, a, ap),
+            pad_cols(wq, a, ap - a), v, conv, dense,
+            pad_units(pad_cols(wid, a, ap - a), d, dp),
+            pad_units(pad_cols(whd, d, dp - d), d, dp),
+            pad_units(bid, d, dp), pad_units(bhd, d, dp))
+
+
+def unpad_core_grads(grads, a: int, d: int, units: int
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``pad_core_weights``'s tensors -> those of the
+    unpadded weights."""
+    ap, dp = padded_width(a, units), padded_width(d, units)
+    gia, gha, gba, gba2, gq, gv, gconv, gdense, gid, ghd, gbd, gbd2 = grads
+    return (unpad_units(gia, a),
+            drop_cols(unpad_units(gha, a), a, ap - a),
+            unpad_units(gba, a), unpad_units(gba2, a),
+            drop_cols(gq, a, ap - a), gv, gconv, gdense,
+            drop_cols(unpad_units(gid, d), a, ap - a),
+            drop_cols(unpad_units(ghd, d), d, dp - d),
+            unpad_units(gbd, d), unpad_units(gbd2, d))

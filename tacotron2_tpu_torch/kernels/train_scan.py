@@ -48,7 +48,7 @@ from tacotron2_tpu_torch.kernels.lstm_layout import (from_blocks,
                                                      from_col_tiles, to_blocks,
                                                      to_col_tiles)
 
-_UNITS = 8          # hidden units per scan_lstm_kernel block (TS_UNITS)
+UNITS = 8           # hidden units per scan_lstm_kernel block (TS_UNITS)
 _AB_THREADS = 512   # attn_bwd_kernel threads: datt must divide it
 
 Keep = Tuple[torch.Tensor, torch.Tensor]
@@ -112,7 +112,7 @@ def pack_scan_weights(att_rnn, query_w: torch.Tensor, v_w: torch.Tensor,
     with torch.no_grad():
         def lstm(p):
             wt = torch.cat([p.w_ih, p.w_hh], dim=1).to(dtype)   # (4H, K)
-            return (to_blocks(wt.t(), _UNITS), (p.b_ih + p.b_hh).float(),
+            return (to_blocks(wt.t(), UNITS), (p.b_ih + p.b_hh).float(),
                     to_col_tiles(wt))
         w1, b1, wta = lstm(att_rnn)
         w2, b2, wtd = lstm(dec_rnn)
@@ -306,19 +306,19 @@ def _check_weights(sw: ScanWeights, mem: torch.Tensor) -> None:
     if W not in (torch.float32, torch.bfloat16):
         raise TypeError(f"scan kernels take fp32 or bf16, got {W}")
     A, D, P, E, datt, ks = _dims(sw, mem)
-    if A % _UNITS or D % _UNITS or ks % 2 == 0:
+    if A % UNITS or D % UNITS or ks % 2 == 0:
         raise ValueError(f"scan kernels need LSTM widths that are multiples "
-                         f"of {_UNITS} and an odd location kernel size")
+                         f"of {UNITS} and an odd location kernel size")
     if datt > _AB_THREADS or _AB_THREADS % datt:
         raise ValueError(f"scan backward kernel needs an attention width "
                          f"dividing {_AB_THREADS}, got {datt}")
-    f32, c = torch.float32, 4 * _UNITS
+    f32, c = torch.float32, 4 * UNITS
     K1, K2 = P + E + A, A + E + D
     tiles = lambda n, k: (-(-n // 32), k, 32)
     for name, t, shape, dt in (
-            ("w1", sw.w1, (A // _UNITS, K1, c), W),
+            ("w1", sw.w1, (A // UNITS, K1, c), W),
             ("b1", sw.b1, (4 * A,), f32),
-            ("w2", sw.w2, (D // _UNITS, K2, c), W),
+            ("w2", sw.w2, (D // UNITS, K2, c), W),
             ("b2", sw.b2, (4 * D,), f32),
             ("wq", sw.wq, (A, datt), W), ("k2", sw.k2, (ks, 2, datt), W),
             ("v", sw.v, (datt,), W), ("vf", sw.vf, (datt,), f32),

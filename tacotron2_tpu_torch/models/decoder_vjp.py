@@ -16,6 +16,13 @@ d weight_ih, d weight_hh and d bias over T*B, and the query gradient from
 d_K2 by the chain rule of the bilinear fold K2 = conv ⊛ dense. Otherwise the
 plain per-step decoder runs under ordinary autograd (the counterpart of
 ``_decode_tf_xla``), which the tests use as a second reference.
+
+The scan kernels take LSTM widths in whole blocks of 8 units. ``CoreScan``
+takes any width: it pads each LSTM with zero units up to the next multiple
+of 8 (``kernels/lstm_layout.pad_core_weights``, where the reason it changes
+no real unit is given) and slices them off the outputs and the gradients
+(``unpad_core_grads``). The JAX package sends such widths to its XLA scan
+instead (its ``train_scan.supported``).
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.kernels import train_scan as ts
 from tacotron2_tpu_torch.kernels.decoder_batch import attention_inputs
 from tacotron2_tpu_torch.kernels.encoder_lstm import lstm_weight_grads, shift
+from tacotron2_tpu_torch.kernels.lstm_layout import (pad_core_weights,
+                                                     padded_width,
+                                                     unpad_core_grads)
 from tacotron2_tpu_torch.ops.lstm import LSTMWeights, lstm_weights
 
 Stacks = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -45,6 +55,17 @@ def core_weights(model) -> Tuple[torch.Tensor, ...]:
             loc.location_conv.conv.weight,
             loc.location_dense.linear_layer.weight,
             *lstm_weights(dec.decoder_rnn))
+
+
+def _pad_keep(keep: Optional[ts.Keep], a: int, d: int
+              ) -> Optional[ts.Keep]:
+    """The keep masks at the padded widths (the added units dropped)."""
+    if keep is None:
+        return None
+    pad = lambda k, n: (k if n == k.shape[-1] else torch.nn.functional.pad(
+        k, (0, n - k.shape[-1])).contiguous())
+    return (pad(keep[0], padded_width(a, ts.UNITS)),
+            pad(keep[1], padded_width(d, ts.UNITS)))
 
 
 def _pack(weights, dtype) -> ts.ScanWeights:
@@ -80,15 +101,19 @@ class CoreScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, prenet, memory, processed, mask, keep, p_att, p_dec,
                 dtype, *weights):
-        sw = _pack(weights, dtype)
+        a, d = weights[1].shape[1], weights[9].shape[1]
+        padded = pad_core_weights(weights, a, d, ts.UNITS)
+        sw = _pack(padded, dtype)
+        keep = _pad_keep(keep, a, d)
         mem, proc, emask = attention_inputs(memory, processed, mask, dtype)
         pre = prenet.to(dtype).contiguous()
         res = ts.forward_residuals(sw, pre, mem, proc, emask, keep=keep,
                                    p_att=p_att, p_dec=p_dec)
-        ctx.save_for_backward(pre, mem, proc, *res, *weights)
+        ctx.save_for_backward(pre, mem, proc, *res, *padded)
         ctx.sw, ctx.keep, ctx.p = sw, keep, (p_att, p_dec)
+        ctx.widths = (a, d)
         ctx.in_dtypes = (prenet.dtype, memory.dtype, processed.dtype)
-        return res.dec_h, res.ctx, res.w
+        return res.dec_h[..., :d], res.ctx, res.w
 
     @staticmethod
     def backward(ctx, d_dec_h, d_ctx, d_align):
@@ -100,7 +125,8 @@ class CoreScan(torch.autograd.Function):
         def cot(d, like):
             if d is None:
                 return torch.zeros(like.shape, device=like.device)
-            return d.float().contiguous()
+            pad = like.shape[-1] - d.shape[-1]  # the padded units' zeros
+            return torch.nn.functional.pad(d.float(), (0, pad)).contiguous()
 
         g = ts.backward_chain(ctx.sw, res, mem, proc, cot(d_dec_h, res.dec_h),
                               cot(d_ctx, res.ctx), cot(d_align, res.w),
@@ -117,7 +143,8 @@ class CoreScan(torch.autograd.Function):
         pdt, mdt, rdt = ctx.in_dtypes
         return (g.d_prenet.to(pdt), d_memory.to(mdt),
                 g.d_processed.to(rdt), None, None, None, None, None,
-                ia, ha, ba, ba, dq_w, dv_w, dconv, ddense, id_, hd, bd, bd)
+                *unpad_core_grads((ia, ha, ba, ba, dq_w, dv_w, dconv, ddense,
+                                   id_, hd, bd, bd), *ctx.widths, ts.UNITS))
 
 
 def _core_scan_autograd(model, prenet, memory, processed, mask, cfg, keep,

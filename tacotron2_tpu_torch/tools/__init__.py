@@ -1,1 +1,2 @@
-"""Tools of the port: the tone-corpus training demo and the quality gate."""
+"""Tools of the port: the tone-corpus training demo, the quality gate and
+the two vocoder trainers."""

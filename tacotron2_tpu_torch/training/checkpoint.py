@@ -19,6 +19,14 @@ sidecar with ``step`` and ``learning_rate``. Writes go through a ``.tmp``
 file and ``os.replace`` on a background thread, one at a time, and only on
 process 0.
 
+The vocoder trainers' states (``training/vocoder_trainer.py``,
+``training/hifigan_trainer.py``) go to the same files: such a state makes
+its own dict (its ``snapshot()``: ``kind`` "waveglow" or "hifigan", the
+vocoder's config as a dict under ``config`` and its state_dict under
+``state_dict``, the torch optimizers' state, ``iteration``,
+``learning_rate``) and loads one back (its
+``restored(ckpt)``). A Tacotron 2 checkpoint has no ``kind``.
+
 ``save`` copies every tensor to host memory before it returns:
 ``training/state.py:guarded_update`` updates the parameters in place, so a
 reference handed to the writer thread would be overwritten by the next
@@ -46,6 +54,19 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+def host_tree(obj):
+    """``obj`` (dicts, lists and tuples of tensors and plain values, such as
+    a module's or an optimizer's ``state_dict()``) with every tensor a host
+    copy."""
+    if isinstance(obj, torch.Tensor):
+        return _host(obj)
+    if isinstance(obj, dict):
+        return {k: host_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_tree(v) for v in obj)
+    return obj
+
+
 def state_dict_of(state: TrainState) -> Dict[str, torch.Tensor]:
     """The model's reference-format state_dict with the state's batchnorm
     running statistics (which live in ``state.stats``, not in the module's
@@ -55,8 +76,11 @@ def state_dict_of(state: TrainState) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def snapshot(state: TrainState) -> dict:
-    """The checkpoint dict of ``state``, every tensor copied to the host."""
+def snapshot(state) -> dict:
+    """The checkpoint dict of ``state``, every tensor copied to the host
+    (a vocoder trainer's state makes its own)."""
+    if not isinstance(state, TrainState):
+        return state.snapshot()
     return {
         "state_dict": state_dict_of(state),
         "optimizer": {
@@ -84,7 +108,7 @@ class Checkpointer:
 
     # ---------------- save ----------------
 
-    def save(self, state: TrainState, wait: bool = False) -> Optional[str]:
+    def save(self, state, wait: bool = False) -> Optional[str]:
         """Snapshot to host memory now, write in the background. Returns the
         path (on process 0; None elsewhere)."""
         if not self.writes:
@@ -146,16 +170,21 @@ class Checkpointer:
         ckpts = self.all_checkpoints()
         return ckpts[-1] if ckpts else None
 
-    def restore(self, state: TrainState, path: Optional[str] = None
-                ) -> TrainState:
+    def restore(self, state, path: Optional[str] = None):
         """Full resume into ``state``'s model (loaded in place, strictly)
         on its device: parameters, batchnorm statistics, Adam moments and
         count, step and learning rate (reference load_checkpoint,
-        train.py:99-109). Returns the restored state."""
+        train.py:99-109). Returns the restored state. A vocoder trainer's
+        state loads its own (``restored``)."""
         path = path or self.latest()
         if path is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         ckpt = load(path)
+        if not isinstance(state, TrainState):
+            return state.restored(ckpt)
+        if "kind" in ckpt:
+            raise ValueError(f"{path} holds a {ckpt['kind']} vocoder, not "
+                             f"a Tacotron 2")
         model = state.model
         dev = next(model.parameters()).device
         model.load_state_dict(ckpt["state_dict"], strict=True)

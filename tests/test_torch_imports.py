@@ -9,12 +9,15 @@ from pathlib import Path
 import pytest
 import torch
 
+from tacotron2_tpu_torch import http_server, infer
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.infer import synthesize
-from tacotron2_tpu_torch.models import hifigan
+from tacotron2_tpu_torch.models import hifigan, waveglow
 from tacotron2_tpu_torch.models import tacotron2 as tm
 from tacotron2_tpu_torch.serve import BatchingSynthesizer, VocoderRunner
 from tacotron2_tpu_torch.streaming import StreamingSynthesizer
+from tacotron2_tpu_torch.training.hifigan_trainer import create_hifigan_state
+from tacotron2_tpu_torch.training.vocoder_trainer import create_vocoder_state
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "tacotron2_tpu_torch"
@@ -51,7 +54,11 @@ def test_importing_every_module_loads_no_jax():
                 "training.schedules", "training.diagnostics",
                 "training.logging", "training.checkpoint",
                 "training.trainer", "train", "tools.train_demo",
-                "tools.synthesis_check", "kernels.gate_probe"):
+                "tools.synthesis_check", "kernels.gate_probe",
+                "models.waveglow", "convert_waveglow", "http_server",
+                "training.vocoder_trainer", "training.hifigan_trainer",
+                "training.audio_batch", "tools.train_vocoder",
+                "tools.train_hifigan"):
         assert f"tacotron2_tpu_torch.{new}" in out
     assert [m for m in out if _forbidden(m)] == []
 
@@ -75,6 +82,9 @@ HG = hifigan.HiFiGANConfig(
     n_mel_channels=8, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4),
     upsample_initial_channel=8, resblock_kernel_sizes=(3,),
     resblock_dilation_sizes=((1,),))
+WG = waveglow.WaveGlowConfig(n_mel_channels=8, n_flows=2, n_early_every=4,
+                             wn_layers=2, wn_channels=8, upsample_kernel=8,
+                             upsample_stride=4)
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu():
@@ -96,10 +106,26 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
     for entry in (tm.infer, tm.infer_batch_fused, tm.infer_fused):
         makers[entry.__name__] = lambda entry=entry, **kw: entry(
             model, text, lengths, SMALL, max_steps=2, **kw)
+
+    def server(**kw):
+        srv = http_server.make_server(model, SMALL, port=0, **kw)
+        srv.server_close()
+        srv.RequestHandlerClass.synthesizer.close()
+    makers["make_server"] = server
+    makers["WaveGlow VocoderRunner"] = lambda **kw: VocoderRunner(
+        "waveglow", waveglow.WaveGlow(WG), WG, max_frames=8, **kw)
+    makers["create_vocoder_state"] = lambda **kw: create_vocoder_state(
+        WG, **kw)
+    makers["create_hifigan_state"] = lambda **kw: create_hifigan_state(
+        HG, **kw)
     for name, make in makers.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
         make(device="cpu")
+    for main in (infer.main, http_server.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["-c", "unused", "-t", "hi"] if main is infer.main
+                 else ["-c", "unused"])
 
 
 def test_int8_weights_are_refused():

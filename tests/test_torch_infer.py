@@ -34,6 +34,7 @@ from tacotron2_tpu_torch.data.bucketing import mel_bucket
 from tacotron2_tpu_torch.kernels import decoder_step as ds
 from tacotron2_tpu_torch.models import hifigan as th
 from tacotron2_tpu_torch.models import tacotron2 as tm
+from tacotron2_tpu_torch.models import waveglow as twg
 from tacotron2_tpu_torch.serve import VocoderRunner
 
 DIMS = dict(
@@ -149,14 +150,25 @@ def test_synthesize_on_a_quantized_model(world):
 
 
 def test_what_is_not_ported_says_so(world):
-    for call in (
-            lambda: infer.synthesize(world.model, TEXTS, world.tcfg,
-                                     vocoder="waveglow", device="cpu"),
-            lambda: infer.Denoiser(None, None),
-            lambda: VocoderRunner("waveglow", world.voc, world.thg,
-                                  max_frames=64, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, section A.2"):
-            call()
+    """WaveGlow and its Denoiser were the last parts of ``infer`` and
+    ``serve`` not ported (they raised NotImplementedError): they now run.
+    What is still refused says why."""
+    wg_cfg = twg.WaveGlowConfig(n_mel_channels=20, n_flows=2, n_early_every=4,
+                                wn_layers=2, wn_channels=8,
+                                upsample_kernel=64, upsample_stride=16)
+    wg = twg.WaveGlow(wg_cfg, torch.Generator().manual_seed(0))
+    res = infer.synthesize(world.model, TEXTS, world.tcfg,
+                           vocoder="waveglow", vocoder_model=wg,
+                           vocoder_cfg=wg_cfg,
+                           denoiser=infer.Denoiser(
+                               wg, wg_cfg, STFTConfig(64, 16, 64)),
+                           device="cpu")
+    for r in res:
+        assert r.audio.shape == (r.mel.shape[0] * 16,)
+        assert np.isfinite(r.audio).all()
+    runner = VocoderRunner("waveglow", wg, wg_cfg, max_frames=64,
+                           device="cpu")
+    assert runner(res[0].mel).shape == res[0].audio.shape
     with pytest.raises(ValueError, match="unknown vocoder"):
         infer.synthesize(world.model, TEXTS, world.tcfg, vocoder="wavenet",
                          device="cpu")

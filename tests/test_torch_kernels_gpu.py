@@ -1244,3 +1244,144 @@ def test_prefetch_copies_to_the_card_one_batch_ahead(cuda):
     for got, want in zip(read, batches):
         for a, b in zip(got, want):
             assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+# LSTM widths that are not whole blocks of 8 units (attention_rnn_dim=20,
+# decoder_rnn_dim=24, the JAX package's trainer-test widths): the kernels
+# run on weights padded with zero units (lstm_layout.pad_core_weights).
+ODD = CFG.replace(attention_rnn_dim=20, decoder_rnn_dim=24)
+ODD_GRAD_REL = 1e-4
+DECODER_CORE = ("decoder.attention_rnn.", "decoder.decoder_rnn.",
+                "decoder.attention_layer.")
+
+
+@pytest.mark.gpu
+def test_train_step_at_lstm_widths_not_in_eights(cuda):
+    """One fp32 training forward and backward with the LSTM dropout on
+    given keep masks at A=20, D=24 on the card: rows 1 and 2 launch and
+    their plain versions do not run; the loss and every decoder-core
+    gradient within ODD_GRAD_REL of its largest value of the same step on
+    the CPU (PyTorch's own convolutions on the card, as chip_smoke.py's
+    fp32 step check)."""
+    from tacotron2_tpu_torch.training import state as tstate
+    from tacotron2_tpu_torch.training.loss import tacotron2_loss
+    B, T_in, T_out = 8, 24, 16
+    out = {}
+    for dev in ("cpu", cuda):
+        model = tm.Tacotron2(ODD, torch.Generator().manual_seed(0),
+                             trainable=True).to(dev)
+        batch = tstate.make_batch(ODD, B, T_in, T_out, seed=0, device=dev)
+        keep = ts.keep_masks(torch.Generator().manual_seed(1), T_out, B, 20,
+                             24, 0.1, 0.1)
+        keep = tuple(k.to(dev) for k in keep)
+        launches = (ts.forward_residuals.launches,
+                    ts.backward_chain.launches)
+        plain = (ts.forward_residuals_plain.calls,
+                 ts.backward_chain_plain.calls)
+        params = dict(model.named_parameters())
+        with torch.backends.cudnn.flags(enabled=False):
+            fwd, _ = tm.forward(model, tm.bn_stats(model), batch.text,
+                                batch.text_lengths, batch.mel,
+                                batch.mel_lengths, ODD, training=True,
+                                keep=keep)
+            loss = tacotron2_loss(fwd, batch.mel, batch.gate_target).total
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (ts.forward_residuals.launches,
+                    ts.backward_chain.launches) == (launches[0] + 1,
+                                                    launches[1] + 1)
+            assert (ts.forward_residuals_plain.calls,
+                    ts.backward_chain_plain.calls) == plain
+        out[str(dev)] = (loss.detach(), grads)
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(float(lg) - float(lc)) <= ODD_GRAD_REL * abs(float(lc))
+    names = [k for k in gc if k.startswith(DECODER_CORE)]
+    errs = rel_errs([gg[k].cpu() for k in names], [gc[k] for k in names],
+                    names)
+    assert all(e <= ODD_GRAD_REL for e in errs.values()), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_chunks_at_lstm_widths_not_in_eights(cuda, dtype):
+    """Rows 5 (B=8) and 6 (B=1) at A=20, D=24 through the chunk loop's
+    ``_decode_chunk`` (the pack padded to 24 and 24 units, the carry padded
+    and sliced back): each output and carry field within DEC_REL /
+    STEP_REL of the same chunk through the plain versions on the same
+    padded pack."""
+    cfg = ODD.replace(gate_threshold=0.3)
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    fused_inputs = lambda fp, *a: ds.attention_inputs(*a)
+    batch_inputs = lambda fp, *a: db.attention_inputs(*a, fp.w1.dtype)
+    for B, pack, inputs, chunk, plain, table in (
+            (8, db.pack_batch_decoder_params, batch_inputs,
+             db.decoder_chunk, db.decoder_chunk_plain, DEC_REL),
+            (1, ds.pack_decoder_params, fused_inputs,
+             ds.decoder_step_chunk, ds.decoder_step_chunk_plain, STEP_REL)):
+        fp = pack(model, dtype)
+        assert fp.w1.shape[0] * 8 == 24 and fp.w2.shape[0] * 8 == 24
+        g = torch.Generator(device=cuda).manual_seed(B)
+        T = 37
+        memory = torch.randn(B, T, 128, generator=g, device=cuda) * 0.5
+        proc = torch.randn(B, T, 128, generator=g, device=cuda) * 0.5
+        mask = torch.ones(B, T, dtype=torch.bool, device=cuda)
+        carry0 = tm.init_stream_carry(memory, cfg)
+        outs = {}
+        for name, fn in (("kernel", chunk), ("plain", plain)):
+            calls = (chunk.launches, plain.calls)
+            carry, (mel, gate, align) = db._decode_chunk(
+                fp, carry0, inputs(fp, memory, proc, mask), cfg, 16, None,
+                fn)
+            torch.cuda.synchronize()
+            assert (chunk.launches - calls[0], plain.calls - calls[1]) == (
+                (1, 0) if name == "kernel" else (0, 1)), name
+            s = carry.state
+            assert s.att_h.shape == (B, 20) and s.dec_h.shape == (B, 24)
+            outs[name] = (mel, gate, align, s.att_h, s.att_c, s.dec_h,
+                          s.dec_c, s.att_weights, s.att_weights_cum,
+                          s.att_context, carry.prev_mel)
+        errs = rel_errs(outs["kernel"], outs["plain"],
+                        ("mel", "gate", "align") + CARRY)
+        limits = table[dtype]
+        assert all(errs[k] <= limits[k] for k in errs), (B, errs)
+
+
+# WaveGlow (plain torch: cuDNN convolutions, cuBLAS products) on the card
+# against the CPU, fp32 with TF32 off (the fixture): z, log s and log det
+# of ``forward``, the audio of ``infer`` with that z, each within
+# WAVEGLOW_REL of its largest value (fp32 sums in other orders through six
+# exp(log s) couplings).
+WAVEGLOW_REL = 1e-4
+
+
+@pytest.mark.gpu
+def test_waveglow_on_the_card_matches_the_cpu(cuda):
+    from tacotron2_tpu_torch.models import waveglow as wg
+    cfg = wg.WaveGlowConfig(n_flows=6, n_early_every=2, wn_layers=4,
+                            wn_channels=64)
+    model = wg.WaveGlow(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # live couplings, and log |det W| away from 0
+        for w in model.WN:
+            w.end.weight.normal_(0, 0.02, generator=g)
+        for inv in model.convinv:
+            w = inv.conv.weight
+            w.mul_(torch.empty(w.shape[0], 1, 1).uniform_(0.8, 1.25,
+                                                          generator=g))
+    g = torch.Generator().manual_seed(2)
+    mel = torch.randn(2, 16, 80, generator=g)
+    audio = torch.randn(2, 16 * 256, generator=g) * 0.3
+    got = {}
+    for dev in ("cpu", cuda):
+        model = model.to(dev)
+        with torch.no_grad():
+            out = wg.forward(model, audio.to(dev), mel.to(dev), cfg)
+        back = wg.infer(model, mel.to(dev), cfg, z=out.z)
+        got[str(dev)] = [t.cpu() for t in (*out, back)]
+    errs = rel_errs(got["cuda"], got["cpu"], ("z", "log_s", "log_det",
+                                              "audio"))
+    assert all(e <= WAVEGLOW_REL for e in errs.values()), errs
+    assert float((got["cuda"][3] - audio).abs().max()) <= (
+        WAVEGLOW_REL * float(audio.abs().max()))

@@ -250,3 +250,77 @@ def test_dropout_step_is_seeded_and_finite():
         losses.append(float(m.loss))
         assert float(m.applied) == 1.0
     assert np.isfinite(losses[0]) and losses[0] == losses[1]
+
+
+REL_LOSS_A20, REL_GRAD_A20 = 1e-5, 1e-4
+
+
+def _jax_lstm_keep(jcfg, dec_key, steps, batch):
+    """The decoder LSTMs' keep masks as the JAX package's XLA scan draws
+    them (``decoder_vjp._step_keep_masks``: step t's key is
+    fold_in(fold_in(dec_key, 200), t), then fold_in 0 and 1)."""
+    scan_rng = jax.random.fold_in(dec_key, 200)
+    att, dec = [], []
+    for t in range(steps):
+        key_t = jax.random.fold_in(scan_rng, t)
+        att.append(jax.random.bernoulli(jax.random.fold_in(key_t, 0),
+                                        1.0 - jcfg.p_attention_dropout,
+                                        (batch, jcfg.attention_rnn_dim)))
+        dec.append(jax.random.bernoulli(jax.random.fold_in(key_t, 1),
+                                        1.0 - jcfg.p_decoder_dropout,
+                                        (batch, jcfg.decoder_rnn_dim)))
+    return tuple(torch.from_numpy(np.stack([np.asarray(k) for k in ks]))
+                 for ks in (att, dec))
+
+
+def test_train_step_at_lstm_widths_not_in_eights(monkeypatch):
+    """One training step at attention_rnn_dim=20, decoder_rnn_dim=24 (the
+    JAX package's trainer-test widths; the scan kernels pad them to whole
+    blocks of 8 units): the loss within 1e-5 and every gradient within
+    1e-4 of its largest value against ``jax.grad``, with the two LSTM
+    dropouts on the JAX-drawn keep masks and no other dropout (the JAX
+    prenet's is turned off here, the port's runs without a generator)."""
+    jcfg, tcfg = configs(attention_rnn_dim=20, decoder_rnn_dim=24)
+    params, stats = jm.init_params(jax.random.PRNGKey(0), jcfg)
+    model = tm.Tacotron2(tcfg, trainable=True)
+    model.load_state_dict(state_dict_from_jax(params, stats, tcfg))
+    jb = _make_batch(jcfg, B=B, T_in=T_IN, T_out=T_OUT, seed=0)
+    tb = tstate.make_batch(tcfg, B, T_IN, T_OUT, seed=0, device="cpu")
+    dec_key = jax.random.PRNGKey(5)
+    prenet = jm.prenet_apply
+    monkeypatch.setattr(jm, "prenet_apply",
+                        lambda p, x, rng, **kw: prenet(p, x, None, **kw))
+
+    def loss_fn(p):
+        memory, _ = jm.encode(p, stats, jb.text, jb.text_lengths, jcfg,
+                              training=True)
+        mel, gate, align = jm.decode_teacher_forced(
+            p, memory, jb.text_lengths, jb.mel, jcfg, training=True,
+            rng=dec_key)
+        residual, _ = jm.postnet_apply(p, stats, mel, jcfg, training=True)
+        mel, post, gate = jm.mask_outputs(mel, mel + residual, gate,
+                                          jb.mel_lengths)
+        return jloss.tacotron2_loss(jm.ForwardOutput(mel, post, gate, align),
+                                    jb.mel, jb.gate_target).total
+
+    jl, jg = jax.value_and_grad(loss_fn)(params)
+    keep = _jax_lstm_keep(jcfg, dec_key, T_OUT, B)
+    assert not keep[0].all() and not keep[1].all()
+    # train_step's two halves, the training forward taking the JAX masks
+    # (train_step draws its own from a generator): loss_and_grads, then
+    # guarded_update
+    state = tstate.state_for(model, tcfg)
+    params_t = dict(model.named_parameters())
+    out, new_stats = tm.forward(model, state.stats, tb.text, tb.text_lengths,
+                                tb.mel, tb.mel_lengths, tcfg, training=True,
+                                keep=keep)
+    loss = tloss.tacotron2_loss(out, tb.mel, tb.gate_target).total
+    grads = dict(zip(params_t, torch.autograd.grad(loss,
+                                                   list(params_t.values()))))
+    assert rel_err(loss, jl) <= REL_LOSS_A20
+    want = state_dict_from_jax(jg, stats, tcfg)
+    assert set(grads) == set(param_names(model))
+    assert_close_by_name(grads, {k: want[k] for k in grads}, REL_GRAD_A20)
+    new, _, applied = tstate.guarded_update(state, grads, new_stats,
+                                            loss.detach(), tcfg)
+    assert float(applied) == 1.0 and int(new.step) == 1
