@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's serving paths, its training step, its trainer, its
-vocoders and its front doors (the infer CLI, the HTTP server) on one CUDA
-card and check them.
+"""Drive the port's serving paths, its training step, its trainer (on one
+rank and on two), its vocoders and its front doors (the infer CLI, the HTTP
+server) on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -101,11 +101,30 @@ on failure:
 15. raw-audio batches at the tone demo's shape (B=32, T_in 32, T_out 256,
     bf16): the targets through the mel kernel (row 8) against the
     ``torch.matmul`` form, then 3 ``train_step_from_audio`` steps (row 8
-    once a step, rows 1-4, no plain version).
+    once a step, rows 1-4, no plain version);
+16. data parallelism on the one card (``dp_phase``; the processes run this
+    file with ``--dp-probe`` or ``--dp-worker``): an NCCL all-reduce from
+    two ranks on the card (NCCL refuses two ranks on one device; the
+    phase then runs gloo on CUDA tensors, and says which ran); two ranks
+    of ``parallel.make_train_step`` at bench.py's shape (2 x B=64, bf16, no
+    dropout) against one process's ``train_step`` at B=128 (DP_REL), the
+    same with each rank's batch statistics its own rejected, both ranks'
+    states equal bit for bit, rows 1-4 in each rank's torch.profiler
+    window and no plain version; then ``Trainer.fit`` on two ranks (the
+    tone demo's config over ``use_native=True`` after ``native/build.sh``):
+    checkpoints from rank 0 only, a resume equal bit for bit,
+    ``grad_accum_steps=2`` launching rows 1-4 twice a step,
+    ``profile_trace`` around a step holding rows 1-4's kernels; and
+    ``python -m tacotron2_tpu_torch.train`` under a one-rank torchrun
+    environment over NCCL.
+
+``python3 chip_smoke.py --dp-cards N`` runs phase 16 alone on a machine
+with N cards: one rank a card over NCCL, N x B=128/N against one process.
 
 The second-to-last line is the ``kernels`` JSON object (times, bounds,
-launches, errors; ``launches_http_server``, ``launches_audio_batch`` and
-``launches_infer_cli`` count the new paths); the last is the device line.
+launches, errors; ``launches_http_server``, ``launches_audio_batch``,
+``launches_infer_cli`` and ``launches_data_parallel`` count the new paths);
+the last is the device line.
 """
 
 from __future__ import annotations
@@ -114,6 +133,7 @@ import functools
 import importlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -3174,6 +3194,555 @@ def audio_batch_phase(dev, card, seed, filelist):
     return counts
 
 
+
+# ------------------------------------------------------- data parallel
+
+DP_RANKS = 2
+DP_GROUP_TIMEOUT_S = 180   # a collective that waits longer raises
+DP_SPAWN_TIMEOUT_S = 420   # every process still running then is killed
+DP_STEPS = 2         # steps held against the one-process step
+DP_TIMED_STEPS = 3   # steps after them, timed
+# The two-rank bf16 step (two ranks of B=64 on the one card) against one
+# process's train_step at B=128 on the same batch and state, both without
+# dropout, after DP_STEPS steps: the loss and gradient norm of each step as
+# a share of their value; each group's worst tensor by its largest |err| as
+# a share of its largest |value| (field_err) for the Adam first moments
+# (the clipped gradients' running mean), the running means and the running
+# variances, and by its root-sum-square err as a share of its root-sum-
+# square value for the first moments (exp_avg_rss: a batchnorm's offset has
+# a gradient summed over B*T with much cancelling, whose largest element
+# moves far more in bf16 than the tensor does); the parameters' largest
+# |err| in units of DP_STEPS * lr (Adam
+# moves an element about lr a step whatever its gradient's size, so an
+# element whose gradient is at the rounding level, as a conv bias right
+# before a batchnorm, may step either way: up to 2 of these units). The
+# first moments of those biases (DP_BN_BIAS) are left out: rounding noise.
+# Limits ~10x the card's readings (NVIDIA H100 80GB HBM3, 700 W:
+# loss 1.31e-4, grad_norm 1.13e-3, exp_avg 0.138 and exp_avg_rss 0.108, both
+# at encoder.convolutions.0.1.bias, running_mean 4.63e-2, running_var
+# 2.69e-3; param 1.94, which Adam bounds near 2 whatever the gap, so its
+# limit is that bound). The same two-rank step with each rank's own batch
+# statistics (the group withheld inside this phase) must fail them: it
+# read running_mean 1.31 and running_var 7.75e-2 (exp_avg 0.797, within
+# its limit: in bf16 the gradients alone do not separate the two at 10x;
+# the fp32 CPU test, tests/test_torch_parallel.py, holds them at 1e-3).
+DP_REL = dict(loss=1.3e-3, grad_norm=1.1e-2, exp_avg=1.4, exp_avg_rss=1.1,
+              running_mean=0.46, running_var=2.7e-2, param=2.5)
+DP_BN_BIAS = ".0.conv.bias"
+# the device kernel of each training row at these shapes (bf16, full width:
+# rows 1-2 on the tensor cores, rows 3-4 on clusters)
+DP_ROW_KERNELS = {"train_scan_fwd": "scan_cell_kernel",
+                  "train_scan_bwd": "attn_lstm_kernel",
+                  "encoder_lstm_fwd": "encoder_cluster_kernel",
+                  "encoder_lstm_bwd": "encoder_bwd_cluster_kernel"}
+CLI_TRAIN_COUNTED = (
+    "import json, runpy\n"
+    "from tacotron2_tpu_torch.kernels import encoder_lstm, train_scan\n"
+    "runpy.run_module('tacotron2_tpu_torch.train', run_name='__main__', "
+    "alter_sys=True)\n"
+    "print('LAUNCHES ' + json.dumps({\n"
+    "    'encoder_lstm_fwd': encoder_lstm.bilstm_forward.launches,\n"
+    "    'encoder_lstm_bwd': encoder_lstm.bilstm_backward.launches,\n"
+    "    'train_scan_fwd': train_scan.forward_residuals.launches,\n"
+    "    'train_scan_bwd': train_scan.backward_chain.launches}))\n")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start(cmds, env=None):
+    return [subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for cmd in cmds]
+
+
+def _wait(procs, timeout):
+    """Wait for every process; kill each one still running at ``timeout``
+    seconds, and every one on any error. Returns [(returncode, output)],
+    the returncode None for a process killed at the deadline."""
+    deadline = time.monotonic() + timeout
+    results = []
+    try:
+        for p in procs:
+            try:
+                out = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0]
+                results.append((p.returncode, out))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                results.append((None, p.communicate()[0]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def _dp_card(rank):
+    """Rank r's card: card r, or with fewer cards than ranks r modulo
+    their count (every rank on card 0 with one card)."""
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _dp_join(backend, rank, world, port):
+    """Join the group of ``world`` processes, this one on its card."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(_dp_card(rank))
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+
+
+def dp_probe_worker(rank, world, port):
+    """One rank of the probe: an NCCL all-reduce over the ranks. NCCL may
+    refuse ranks that share a card."""
+    import torch.distributed as dist
+    _dp_join("nccl", rank, world, port)
+    x = torch.full((4,), float(rank + 1), device=_dp_card(rank))
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    if float(x[0]) != world * (world + 1) / 2:
+        raise RuntimeError(f"the NCCL all-reduce gave {x.tolist()}")
+    dist.destroy_process_group()
+
+
+def _dp_snapshot(state, metrics):
+    """The state's parameters, statistics and first moments and the steps'
+    metrics, as fp32 copies on the host."""
+    out = {f"param/{k}": v.detach().float().cpu()
+           for k, v in state.model.named_parameters()}
+    for group in ("stats", "exp_avg"):
+        out.update({f"{group}/{k}": v.float().cpu()
+                    for k, v in getattr(state, group).items()})
+    for f in ("loss", "grad_norm", "applied"):
+        out[f] = torch.stack([getattr(m, f).float() for m in metrics]).cpu()
+    return out
+
+
+def _same_as_rank0(tensors, group):
+    """Whether this rank's fp32 tensors equal rank 0's bit for bit (rank
+    0's are broadcast and compared on each rank)."""
+    import torch.distributed as dist
+    flat = torch.cat([t.detach().reshape(-1).view(torch.int32)
+                      for t in tensors])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=0, group=group)
+    return bool(torch.equal(theirs, flat))
+
+
+def _state_fp32(state, with_stats=True):
+    return ([p.detach() for p in state.model.parameters()]
+            + list(state.exp_avg.values()) + list(state.exp_avg_sq.values())
+            + (list(state.stats.values()) if with_stats else []))
+
+
+def _dp_steps(cfg, dev, seed, mesh, root, synced):
+    """DP_STEPS then DP_TIMED_STEPS data-parallel steps on this rank's rows
+    of bench.py's batch, no dropout, each step and its gradient all-reduce
+    timed on the host (synchronised around each). After DP_STEPS rank 0
+    saves its state; every rank checks it equals rank 0's. With ``synced``
+    False the batchnorm group is withheld: each rank's own statistics."""
+    from tacotron2_tpu_torch.parallel import (make_train_step,
+                                              replicate_state, shard_batch)
+    from tacotron2_tpu_torch.parallel import step as pstep
+    B, T_in, T_out = (TRAIN_SHAPE[k] for k in ("B", "T_in", "T_out"))
+    state = replicate_state(tstate.create_train_state(
+        cfg, generator=torch.Generator().manual_seed(seed), device=dev), mesh)
+    local = shard_batch(tstate.make_batch(cfg, B, T_in, T_out, seed=seed,
+                                          device=dev), mesh)
+    plain_bn, plain_reduce = tm.batchnorm_train, pstep.all_reduce_mean
+    reduce_s = []
+
+    def timed_reduce(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_reduce(*a, **k)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+        return out
+
+    if not synced:
+        tm.batchnorm_train = lambda *a, group=None, **k: plain_bn(*a, **k)
+    pstep.all_reduce_mean = timed_reduce
+    try:
+        step = make_train_step(cfg, mesh)
+        metrics, step_s = [], []
+        for i in range(DP_STEPS + DP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, local, None)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            metrics.append(m)
+            if i == DP_STEPS - 1:
+                same = _same_as_rank0(_state_fp32(state, synced), mesh.group)
+                if mesh.rank == 0:
+                    torch.save(_dp_snapshot(state, metrics), root / (
+                        "dp_synced.pt" if synced else "dp_unsynced.pt"))
+        names = None
+        if synced:  # two steps under the profiler: which kernels ran
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.05)  # see _device_events
+                for _ in range(2):
+                    state, _ = step(state, local, None)
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+            names = sorted({e.name.split("(")[0].split("<")[0]
+                            .replace("void ", "") for e in prof.events()
+                            if e.device_type
+                            == torch.autograd.DeviceType.CUDA})
+    finally:
+        tm.batchnorm_train, pstep.all_reduce_mean = plain_bn, plain_reduce
+    return dict(step_ms=[t * 1e3 for t in step_s],
+                all_reduce_ms=[t * 1e3 for t in reduce_s], same=same,
+                kernels=names, losses=[float(m.loss) for m in metrics])
+
+
+def _trace_kernels(path):
+    """The kernel names in a ``profile_trace`` trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"].split("(")[0].split("<")[0].replace("void ", "")
+            for e in events if e.get("cat") == "kernel"}
+
+
+def _dp_fit(dev, seed, mesh, root):
+    """``Trainer.fit`` on the ranks, full width (the tone demo's config:
+    bf16, dropout on), over a native-extracted pipeline of the tone corpus
+    that every rank reads whole: 4 steps from scratch (a checkpoint and a
+    validation every 2; each rank its own output directory, so that rank
+    1's shows what it wrote), then a Trainer resumed from rank 0's step-2
+    checkpoint for the same 2 steps, equal bit for bit; 2 steps with
+    grad_accum_steps=2; one step inside ``profile_trace``."""
+    import torch.distributed as dist
+    from tacotron2_tpu_torch.data import DataPipeline, TextMelDataset
+    from tacotron2_tpu_torch.tools import train_demo
+    from tacotron2_tpu_torch.training.trainer import Trainer
+    from tacotron2_tpu_torch.utils.profiling import (latest_trace,
+                                                     profile_trace)
+    cfg = train_demo.demo_config(
+        hparams=f"seed={seed},iters_per_checkpoint=2,log_interval=1")
+    whole = dict(process_index=0, process_count=1)
+    data = TextMelDataset(str(root / "corpus" / "train.txt"), cfg,
+                          use_native=True)
+    if data._native is None:
+        fail("use_native=True did not take the native extractor")
+    train = DataPipeline(data, cfg, **whole)
+    val = DataPipeline(TextMelDataset(str(root / "val.txt"), cfg,
+                                      shuffle=False, use_native=True),
+                       cfg, drop_last=False, **whole)
+
+    def counts():
+        return {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
+
+    for fn in TRAIN_KERNELS.values():
+        fn.launches = 0
+    first = Trainer(cfg, str(root / f"fit_{mesh.rank}"), device=dev)
+    first.fit(train, val, epochs=1 << 30, max_steps=4)
+    torch.cuda.synchronize()
+    fit_counts = counts()
+    timing = first.last_fit
+    dist.barrier()  # rank 0's checkpoints are written
+    resumed = Trainer(cfg, str(root / f"resumed_{mesh.rank}"),
+                      checkpoint_path=str(root / "fit_0" / "checkpoint_2.pt"),
+                      device=dev)
+    resumed.fit(train, val, epochs=1 << 30, max_steps=4)
+    gap = _largest_gap(_state_tensors(resumed.state),
+                       _state_tensors(first.state))
+    same = _same_as_rank0(_state_fp32(first.state), mesh.group)
+    del resumed
+
+    for fn in TRAIN_KERNELS.values():
+        fn.launches = 0
+    accum = Trainer(cfg.replace(grad_accum_steps=2),
+                    str(root / f"accum_{mesh.rank}"), device=dev)
+    seen = []
+    accum.fit(train, None, epochs=1 << 30, max_steps=2,
+              on_step=lambda step, m: seen.append(m))
+    torch.cuda.synchronize()
+    accum_counts = counts()
+    accum_rows = [(float(m.loss), float(m.applied)) for m in seen]
+    del accum
+
+    trace_dir = root / f"trace_{mesh.rank}"
+    with profile_trace(str(trace_dir)):
+        first.fit(train, None, epochs=1 << 30,
+                  max_steps=int(first.state.step) + 1)
+        torch.cuda.synchronize()
+    traced = _trace_kernels(latest_trace(str(trace_dir)))
+    return dict(fit_launches=fit_counts, fit_steps=timing.steps,
+                fit_wall_s=timing.wall_s,
+                fit_intervals_ms=[t * 1e3 for t in timing.step_intervals_s],
+                resume_gap=gap, same=same, accum_launches=accum_counts,
+                accum_rows=accum_rows,
+                traced={k: v in traced for k, v in DP_ROW_KERNELS.items()})
+
+
+def dp_worker(rank, world, port, root, backend, seed):
+    """One rank of the data-parallel phase on its card (``_dp_card``):
+    the step synced and unsynced, then ``Trainer.fit``. Writes its report
+    to ``root/dp_rank<rank>.json``."""
+    import torch.distributed as dist
+    from tacotron2_tpu_torch.parallel import create_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _dp_join(backend, rank, world, port)
+    mesh = create_mesh()
+    dev = _dp_card(rank)
+    root = Path(root)
+    cfg = create_config()
+    for fn in TRAIN_KERNELS.values():
+        fn.launches = 0
+    plain0 = sum(f.calls for f in PLAIN_VERSIONS)
+    synced = _dp_steps(cfg, dev, seed, mesh, root, synced=True)
+    step_counts = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
+    unsynced = _dp_steps(cfg, dev, seed, mesh, root, synced=False)
+    fit = _dp_fit(dev, seed, mesh, root)
+    report = dict(rank=rank, backend=dist.get_backend(), synced=synced,
+                  unsynced=unsynced, step_launches=step_counts,
+                  step_count=DP_STEPS + DP_TIMED_STEPS + 2, fit=fit,
+                  plain=sum(f.calls for f in PLAIN_VERSIONS) - plain0,
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    (root / f"dp_rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _dp_gaps(got, want, lr):
+    """Each group's worst gap, (name, value), as DP_REL measures it."""
+    worst = {}
+
+    def note(group, name, value):
+        if group not in worst or value > worst[group][1]:
+            worst[group] = (name, value)
+
+    for i in range(DP_STEPS):
+        for f in ("loss", "grad_norm"):
+            note(f, f"{f} {i}", abs(float(got[f][i]) - float(want[f][i]))
+                 / abs(float(want[f][i])))
+    for k in want:
+        kind, _, name = k.partition("/")
+        if kind == "param":
+            note("param", k, float((got[k] - want[k]).abs().max())
+                 / (DP_STEPS * lr))
+        elif kind == "exp_avg" and not name.endswith(DP_BN_BIAS):
+            note("exp_avg", k, field_err(got[k], want[k])[1])
+            note("exp_avg_rss", k, float((got[k] - want[k]).norm()
+                                         / want[k].norm()))
+        elif kind == "stats":
+            note(name.rsplit(".", 1)[1], k, field_err(got[k], want[k])[1])
+    return worst
+
+
+def _dp_beyond(worst):
+    return {g: (n, v) for g, (n, v) in worst.items() if v > DP_REL[g]}
+
+
+def dp_phase(cfg, dev, card, seed, ranks=DP_RANKS):
+    """Data parallelism: ``ranks`` processes of
+    ``parallel.make_train_step`` (on the one card, or one a card with
+    ``--dp-cards``) against one process's ``train_step``, then
+    ``Trainer.fit`` on the ranks and the train CLI under a one-rank
+    torchrun environment over NCCL. Returns rank 0's launch counts in the
+    data-parallel steps."""
+    from tacotron2_tpu_torch.tools import train_demo
+    t_phase = time.perf_counter()
+    BUILD.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="data_parallel_", dir=BUILD))
+    lib = REPO / "native" / "libtaco_dsp.so"
+    had_lib = lib.exists()
+    me = str(Path(__file__).resolve())
+    try:
+        torch.cuda.empty_cache()
+        port = _free_port()
+        probe = _start([[sys.executable, me, "--dp-probe", str(r),
+                         str(ranks), str(port)] for r in range(ranks)])
+        # meanwhile: the one-process reference, the native library, the
+        # corpus
+        B, T_in, T_out = (TRAIN_SHAPE[k] for k in ("B", "T_in", "T_out"))
+        state = tstate.create_train_state(
+            cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+        batch = tstate.make_batch(cfg, B, T_in, T_out, seed=seed, device=dev)
+        metrics, one_ms = [], []
+        for _ in range(DP_STEPS + DP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m, _ = tstate.train_step(state, batch, cfg)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+            if len(metrics) == DP_STEPS:
+                ref = _dp_snapshot(state, metrics)
+        del state, batch, metrics
+        torch.cuda.empty_cache()
+        subprocess.run(["sh", str(REPO / "native" / "build.sh")], check=True,
+                       capture_output=True, timeout=300)
+        filelist = train_demo.build_corpus(str(root / "corpus"), 128)
+        lines = Path(filelist).read_text().splitlines()
+        (root / "val.txt").write_text("\n".join(lines[:32]))
+        probed = _wait(probe, 120)
+        backend = "nccl" if all(rc == 0 for rc, _ in probed) else "gloo"
+        said = [l for rc, out in probed for l in out.splitlines()
+                if "Duplicate GPU" in l or "rror" in l]
+        cards = min(ranks, torch.cuda.device_count())
+        why = "" if backend == "nccl" else (
+            f": NCCL refused {ranks} ranks on {cards} card(s) ("
+            + (said or [probed[0][1].strip()[-300:]])[-1].strip()[-300:]
+            + ")")
+        print(f"data parallel [{card}] {ranks} ranks on {cards} card(s) "
+              f"over {backend}{why}")
+
+        port = _free_port()
+        t0 = time.perf_counter()
+        done = _wait(_start([[sys.executable, me, "--dp-worker", str(r),
+                              str(ranks), str(port), str(root), backend,
+                              str(seed)] for r in range(ranks)]),
+                     DP_SPAWN_TIMEOUT_S)
+        workers_s = time.perf_counter() - t0
+        for r, (rc, out) in enumerate(done):
+            if rc != 0:
+                fail(f"data-parallel rank {r} exited {rc} (None: killed "
+                     f"after {DP_SPAWN_TIMEOUT_S} s):\n{out[-4000:]}")
+        reports = [json.loads((root / f"dp_rank{r}.json").read_text())
+                   for r in range(ranks)]
+
+        # the data-parallel step against the one-process step
+        lr = cfg.learning_rate
+        synced = _dp_gaps(torch.load(root / "dp_synced.pt"), ref, lr)
+        unsynced = _dp_gaps(torch.load(root / "dp_unsynced.pt"), ref, lr)
+        fmt = lambda w: ", ".join(f"{g} {s:.3e} ({n})" for g, (n, s)
+                                  in sorted(w.items()))
+        print(f"data parallel [{card}] {ranks} ranks x B="
+              f"{B // ranks} against one process at B={B} (bf16, T_in "
+              f"{T_in}, T_out {T_out}, no dropout), {DP_STEPS} steps, worst "
+              f"of each group: " + fmt(synced))
+        print(f"data parallel [{card}] with each rank's own batch statistics "
+              f"(unsynced): " + fmt(unsynced))
+        rep0 = reports[0]
+        n = DP_STEPS + DP_TIMED_STEPS
+        step_ms = [float(np.median(rep["synced"]["step_ms"][DP_STEPS:]))
+                   for rep in reports]
+        reduce_ms = [float(np.median(rep["synced"]["all_reduce_ms"][
+            DP_STEPS:n])) for rep in reports]
+        own_ms = [float(np.median(rep["unsynced"]["step_ms"][DP_STEPS:]))
+                  for rep in reports]
+        seen = [sorted(set(DP_ROW_KERNELS.values())
+                       & set(rep["synced"]["kernels"])) for rep in reports]
+        r2 = lambda xs: [round(x, 2) for x in xs]
+        print(f"data parallel [{card}] step (host clock, median of "
+              f"{DP_TIMED_STEPS} after {DP_STEPS}) by rank: {r2(step_ms)} ms; "
+              f"the gradient all-reduce (one flat fp32 buffer, {backend}) "
+              f"{r2(reduce_ms)} ms, {max(reduce_ms) / max(step_ms):.3f} of "
+              f"the step; with unsynced batch statistics {r2(own_ms)} ms; "
+              f"one process at B={B} {np.median(one_ms[DP_STEPS:]):.2f} ms; "
+              f"launches a rank over {rep0['step_count']} steps "
+              f"{rep0['step_launches']}; rows 1-4's device kernels in each "
+              f"rank's profile {seen}; peak memory by rank "
+              f"{r2(rep['peak_gb'] for rep in reports)} GB")
+
+        beyond = _dp_beyond(synced)
+        if beyond:
+            fail(f"the data-parallel step is beyond DP_REL: {beyond}")
+        if not _dp_beyond(unsynced):
+            fail("the comparison passes the data-parallel step with unsynced "
+                 "batch statistics")
+        for rep in reports:
+            r = rep["rank"]
+            for what in ("synced", "unsynced"):
+                if not rep[what]["same"]:
+                    fail(f"rank {r}'s state differs from rank 0's after "
+                         f"the {what} steps")
+            missing = [k for k, name in DP_ROW_KERNELS.items()
+                       if name not in rep["synced"]["kernels"]
+                       or rep["step_launches"][k] == 0]
+            if missing or rep["plain"]:
+                fail(f"rank {r}: kernels {missing} did not launch, or a "
+                     f"plain version ran ({rep['plain']} calls)")
+
+        # Trainer.fit on the ranks
+        for rep in reports:
+            fit, r = rep["fit"], rep["rank"]
+            if fit["resume_gap"][0] is not None:
+                fail(f"rank {r}: the resumed Trainer differs from the first "
+                     f"one at {fit['resume_gap']}")
+            if not fit["same"]:
+                fail(f"rank {r}: Trainer.fit left a state other than rank "
+                     f"0's")
+            if not all(fit["traced"].values()):
+                fail(f"rank {r}: profile_trace's trace lacks kernels: "
+                     f"{fit['traced']}")
+            per_step = {k: rep["step_launches"][k] / rep["step_count"]
+                        for k in DP_ROW_KERNELS}
+            want = {k: 2 * 2 * v for k, v in per_step.items()}
+            if fit["accum_launches"] != want:
+                fail(f"rank {r}: grad_accum_steps=2 launched "
+                     f"{fit['accum_launches']} in 2 steps, not {want}")
+            if not all(math.isfinite(l) and a == 1.0
+                       for l, a in fit["accum_rows"]):
+                fail(f"rank {r}: accumulated steps {fit['accum_rows']}")
+        ckpts = sorted(p.name
+                       for p in (root / "fit_0").glob("checkpoint_*.pt"))
+        others = [f"{d}_{r}" for r in range(1, ranks)
+                  for d in ("fit", "resumed", "accum")
+                  if (root / f"{d}_{r}").exists()]
+        if "checkpoint_2.pt" not in ckpts or others:
+            fail(f"checkpoints: rank 0 wrote {ckpts}; other ranks' "
+                 f"directories {others} exist")
+        fit0 = rep0["fit"]
+        print(f"data parallel [{card}] Trainer.fit on {ranks} ranks (tone "
+              f"demo config, B=32 global, bf16, dropout on, native mels): "
+              f"{fit0['fit_steps']} steps in {fit0['fit_wall_s']:.3f} s "
+              f"(median interval "
+              f"{np.median(fit0['fit_intervals_ms']):.2f} ms), launches "
+              f"{fit0['fit_launches']}; rank 0 alone wrote {ckpts}; a "
+              f"Trainer resumed from checkpoint_2 equal bit for bit on each "
+              f"rank; all ranks equal; grad_accum_steps=2: losses "
+              f"{[round(l, 5) for l, _ in fit0['accum_rows']]}, launches "
+              f"{fit0['accum_launches']} in 2 steps; profile_trace holds "
+              f"rows 1-4's kernels on each rank; the {ranks} workers' "
+              f"wall {workers_s:.1f} s")
+
+        # the CLI under a one-rank torchrun environment over NCCL
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        out_dir = root / "cli"
+        t0 = time.perf_counter()
+        (rc, out), = _wait(_start([[
+            sys.executable, "-c", CLI_TRAIN_COUNTED, "-o", str(out_dir),
+            "--hparams", f"training_files={filelist},validation_files="
+            f"{root / 'val.txt'},epochs=1,batch_size=32,text_buckets=32+48,"
+            f"max_mel_length=512,iters_per_checkpoint=2,seed={seed}"]],
+            env=env), 300)
+        cli_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"the train CLI exited {rc}:\n{out[-4000:]}")
+        launches = json.loads(out.split("LAUNCHES ", 1)[1].splitlines()[0])
+        group_line = [l for l in out.splitlines()
+                      if l.startswith("Process group:")]
+        ckpts = sorted(p.name for p in out_dir.glob("checkpoint_*.pt"))
+        if (group_line != ["Process group: backend nccl, data parallel over "
+                           "1 rank(s)"] or not ckpts
+                or not all(launches[k] for k in DP_ROW_KERNELS)):
+            fail(f"the train CLI under torchrun: {group_line}, checkpoints "
+                 f"{ckpts}, launches {launches}")
+        print(f"data parallel [{card}] python -m tacotron2_tpu_torch.train "
+              f"under a one-rank torchrun environment: {group_line[0]}; "
+              f"checkpoints {ckpts}; launches {launches}; {cli_s:.1f} s")
+        print(f"data parallel [{card}] phase wall "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return rep0["step_launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if not had_lib:
+            lib.unlink(missing_ok=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3222,6 +3791,7 @@ def main() -> int:
         audio_counts = audio_batch_phase(dev, card, seed, filelist)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    dp_counts = dp_phase(cfg, dev, card, seed)
 
     enc["launches"] = counts["encoder_lstm_fwd"]
     enc["launches_training"] = train_counts["encoder_lstm_fwd"]
@@ -3242,6 +3812,8 @@ def main() -> int:
     for k in (scan_fwd, scan_bwd, enc, enc_bwd):
         k["launches_audio_batch"] = audio_counts[k["name"]]
     mel["launches_audio_batch"] = audio_counts["mel_spectrogram_fused"]
+    for k in (scan_fwd, scan_bwd, enc, enc_bwd):
+        k["launches_data_parallel"] = dp_counts[k["name"]]
     enc["launches_infer_cli"] = cli_counts["encoder_lstm_fwd"]
     step["launches_infer_cli"] = cli_counts["decoder_step_chunk"]
     int8["launches_infer_cli"] = cli_counts["int8_matmul"]
@@ -3253,5 +3825,39 @@ def main() -> int:
     return 0
 
 
+def dp_cards_main(n: int) -> int:
+    """``--dp-cards N``: the data-parallel phase alone, one rank on each of
+    N cards of this machine over NCCL, against one process on card 0."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke: --dp-cards {n} needs {n} CUDA devices",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    print(f"built {sorted(built) or 'nothing (cached)'} for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s")
+    counts = dp_phase(create_config(), torch.device("cuda", 0), card, 1234,
+                      ranks=n)
+    print(json.dumps({"launches_data_parallel": counts}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    # the data-parallel phase's processes run this file with a role;
+    # --dp-cards N runs that phase alone over N cards
+    if sys.argv[1:2] == ["--dp-cards"]:
+        sys.exit(dp_cards_main(int(sys.argv[2])))
+    elif sys.argv[1:2] == ["--dp-probe"]:
+        dp_probe_worker(*map(int, sys.argv[2:5]))
+    elif sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                  sys.argv[5], sys.argv[6], int(sys.argv[7]))
+    else:
+        sys.exit(main())

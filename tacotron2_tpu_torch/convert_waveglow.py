@@ -25,6 +25,7 @@ from typing import Dict, Mapping, Union
 
 import torch
 
+from tacotron2_tpu_torch.models.tacotron2 import resolve_device
 from tacotron2_tpu_torch.models.waveglow import WaveGlow, WaveGlowConfig
 
 
@@ -71,14 +72,16 @@ def convert_waveglow_state_dict(sd: Mapping[str, torch.Tensor],
 
 def load_waveglow_checkpoint(path: str,
                              cfg: WaveGlowConfig = WaveGlowConfig(),
-                             device: Union[str, torch.device] = "cpu"
+                             device: Union[str, torch.device] = "cuda"
                              ) -> WaveGlow:
-    """A published WaveGlow ``.pt`` -> ``WaveGlow(cfg)`` on ``device``. The
+    """A published WaveGlow ``.pt`` -> ``WaveGlow(cfg)`` on ``device`` (the
+    card unless the caller asks for the CPU, as every entry point). The
     published file holds a pickled module (``{"model": WaveGlow}``), so it
     is read with ``weights_only=False``, which runs code from the file: load
     only files you trust, with the published ``glow`` module importable. A
     file holding a state_dict, bare or under ``"model"`` or
     ``"state_dict"``, loads the same way."""
+    device = resolve_device(device)
     blob = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(blob, dict):
         blob = blob.get("model", blob.get("state_dict", blob))

@@ -21,6 +21,7 @@ import scipy.io.wavfile
 from tacotron2_tpu_torch.audio import filters
 from tacotron2_tpu_torch.audio.mel import MelConfig
 from tacotron2_tpu_torch.config import Tacotron2Config
+from tacotron2_tpu_torch.data import native
 from tacotron2_tpu_torch.text import text_to_sequence
 
 # Mels computed from wavs are kept, up to this many bytes in all, so that
@@ -28,10 +29,6 @@ from tacotron2_tpu_torch.text import text_to_sequence
 # loop (data/pipeline.py). A corpus larger than this computes the rest anew
 # each epoch; precomputed .npy mels (load_mel_from_disk) are read, not kept.
 MEL_CACHE_BYTES = 4 << 30
-
-NATIVE_NOT_PORTED = ("the native C++ mel extractor (data/native.py) is not "
-                     "ported yet (ROADMAP.md, section A.2); pass "
-                     "use_native=None or False for the numpy path")
 
 
 def load_filelist(path: str, split: str = "|") -> List[List[str]]:
@@ -72,15 +69,14 @@ class TextMelDataset:
     construction (data_utils.py:28-29), text cleaning via the configured
     cleaners, wav normalized by max_wav_value, strict sample-rate check.
     Mels computed from wavs are kept (``MEL_CACHE_BYTES``): the same bytes
-    come back for the same file. ``use_native=True`` asks for the native
-    extractor, which is not ported and raises; None or False take the numpy
-    path.
+    come back for the same file. ``use_native``: None (the default) reads
+    and extracts with the native library (``data/native.py``) when it has
+    been built, with numpy otherwise; True requires the library and raises
+    when it is not built; False always takes numpy.
     """
 
     def __init__(self, filelist_path: str, config: Tacotron2Config,
                  shuffle: bool = True, use_native: Optional[bool] = None):
-        if use_native:
-            raise NotImplementedError(NATIVE_NOT_PORTED)
         self.entries = load_filelist(filelist_path)
         self.config = config
         self.mel_config = MelConfig.from_config(config)
@@ -94,6 +90,16 @@ class TextMelDataset:
             from tacotron2_tpu_torch.text.cmudict import CMUDict
             self._cmudict = CMUDict(config.cmudict_path)
             self._arpabet_rng = random.Random(config.seed + 1)
+        # the native C++ extractor (native/mel_extract.cc), the numpy
+        # path's numerics to ~5e-4 (tests/test_torch_native.py)
+        self._native = None
+        if use_native:
+            self._native = native.NativeMelExtractor(self.mel_config)
+        elif use_native is None and native.available():
+            try:
+                self._native = native.NativeMelExtractor(self.mel_config)
+            except RuntimeError:  # a config it cannot take (n_fft not 2^k)
+                self._native = None
         self._mels: Dict[str, np.ndarray] = {}
         self._mel_bytes = 0
         self._mels_lock = threading.Lock()
@@ -123,12 +129,14 @@ class TextMelDataset:
         mel = self._mels.get(audio_path)
         if mel is not None:
             return mel
-        audio, sr = load_wav(audio_path)
+        read = native.wav_read if self._native is not None else load_wav
+        audio, sr = read(audio_path)
         if sr != self.config.sampling_rate:
             raise ValueError(f"{audio_path}: sample rate {sr} != "
                              f"{self.config.sampling_rate}")
-        mel = mel_spectrogram_np(audio / self.config.max_wav_value,
-                                 self.mel_config)
+        audio = audio / self.config.max_wav_value
+        mel = (self._native.extract(audio) if self._native is not None
+               else mel_spectrogram_np(audio, self.mel_config))
         mel.flags.writeable = False  # shared by every later epoch
         with self._mels_lock:
             if self._mel_bytes + mel.nbytes <= MEL_CACHE_BYTES:

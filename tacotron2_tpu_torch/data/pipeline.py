@@ -3,9 +3,14 @@ host-to-card copy one batch ahead.
 
 The port's copy of the JAX package's ``data/pipeline.py``: a background
 thread assembles batch N+1 (text and mel extraction, padding) while the
-card runs batch N. With several training processes each takes a strided
-slice of the dataset (torch's DistributedSampler); the index and count come
-from ``torch.distributed`` when it is initialised. ``DeviceTransfer``
+card runs batch N. With several processes each takes a strided slice of
+the dataset (torch's DistributedSampler) unless told otherwise; the index
+and count come from ``torch.distributed`` when it is initialised. The
+``Trainer``'s data-parallel ranks are told otherwise: each iterates the
+whole dataset's global batches (``process_count=1``), as the JAX package's
+one global batch sharded by rows, and assembles only its own rows
+(``epoch(rows=...)``), so that every rank meets the same shapes and the
+same number of steps. ``DeviceTransfer``
 copies each batch to the card from pinned host memory on a side stream,
 and makes the consumer's stream wait for that copy.
 
@@ -55,6 +60,7 @@ class DataPipeline:
         pi, pc = process_index_and_count()
         pi = pi if process_index is None else process_index
         pc = pc if process_count is None else process_count
+        self.process_count = pc
         # strided per-process shard of the (already seed-shuffled) dataset
         self.indices = list(range(pi, len(dataset), pc))
         # (text_len, mel_len) per item, from the text and the WAV header:
@@ -75,17 +81,20 @@ class DataPipeline:
         return BucketSampler(self.lengths, self.config, self.batch_size,
                              self.drop_last)
 
-    def epoch(self, epoch_index: int, skip: int = 0) -> Iterator[Batch]:
+    def epoch(self, epoch_index: int, skip: int = 0,
+              rows: Optional[np.ndarray] = None) -> Iterator[Batch]:
         """Deterministically shuffled epoch of padded batches; the first
         ``skip`` batches are left out unassembled (a run resumed in the
-        middle of an epoch)."""
+        middle of an epoch). ``rows``: assemble only these rows of each
+        batch (a data-parallel rank's, ``parallel.mesh.local_rows``), at
+        the batch's padded shape."""
         rng = np.random.RandomState(self.config.seed + epoch_index)
         for i, (shape, item_idxs) in enumerate(self._sampler().batches(rng)):
             if i >= skip:
-                yield self._assemble(shape, item_idxs)
+                yield self._assemble(shape, item_idxs, rows)
 
-    def _assemble(self, shape: Tuple[int, int], item_idxs: List[int]
-                  ) -> Batch:
+    def _assemble(self, shape: Tuple[int, int], item_idxs: List[int],
+                  rows: Optional[np.ndarray] = None) -> Batch:
         t_text, t_mel = shape
         n_real = len(item_idxs)
         if n_real < self.batch_size:
@@ -95,11 +104,14 @@ class DataPipeline:
             # weights them out (training/loss.py).
             reps = -(-self.batch_size // n_real)
             item_idxs = (item_idxs * reps)[:self.batch_size]
+        row_valid = np.zeros((len(item_idxs),), np.float32)
+        row_valid[:n_real] = 1.0
+        if rows is not None:
+            item_idxs = [item_idxs[r] for r in rows]
+            row_valid = row_valid[rows]
         items = [self.dataset[self.indices[j]] for j in item_idxs]
         arrays = pad_batch(items, t_text, t_mel,
                            self.config.n_frames_per_step)
-        row_valid = np.zeros((len(item_idxs),), np.float32)
-        row_valid[:n_real] = 1.0
         return Batch(*(torch.from_numpy(a) for a in arrays),
                      row_valid=torch.from_numpy(row_valid))
 

@@ -235,11 +235,13 @@ def bn_stats(model: Tacotron2) -> Stats:
 
 def _conv_bn_apply(seq: nn.Sequential, prefix: str, x: torch.Tensor,
                    stats: Optional[Stats], new_stats: Stats, training: bool,
-                   compute_dtype) -> torch.Tensor:
+                   compute_dtype, bn_group=None) -> torch.Tensor:
     """conv -> batchnorm, on the running statistics (``stats`` by the
     batchnorm's state_dict ``prefix``, the module's buffers when None) or,
     in training, on the batch statistics, with the new running estimates
-    put into ``new_stats``; the result in the compute dtype."""
+    put into ``new_stats``; the result in the compute dtype. ``bn_group``
+    syncs the batch statistics over a data-parallel process group
+    (``ops/layers.batchnorm_train``)."""
     conv, bn = seq[0].conv, seq[1]
     x = conv1d(x, conv.weight, conv.bias, compute_dtype)
     if stats is None:
@@ -250,7 +252,8 @@ def _conv_bn_apply(seq: nn.Sequential, prefix: str, x: torch.Tensor,
     if training:
         x, new_stats[f"{prefix}.running_mean"], \
             new_stats[f"{prefix}.running_var"] = batchnorm_train(
-                x, mean, var, bn.weight, bn.bias, bn.momentum, bn.eps)
+                x, mean, var, bn.weight, bn.bias, bn.momentum, bn.eps,
+                group=bn_group)
     else:
         x = batchnorm(x, mean, var, bn.weight, bn.bias, bn.eps)
     return x.to(compute_dtype) if compute_dtype is not None else x
@@ -281,7 +284,7 @@ def encode(model: Tacotron2, text: torch.Tensor, text_lengths: torch.Tensor,
            cfg: Tacotron2Config, *, compute_dtype=None,
            packed_lstm: Optional[encoder_lstm.PackedBiLSTM] = None,
            stats: Optional[Stats] = None, training: bool = False,
-           generator: Optional[torch.Generator] = None):
+           generator: Optional[torch.Generator] = None, bn_group=None):
     """text (B, T_in) int -> encoder memory (B, T_in, e) fp32.
 
     3x [conv5 -> batchnorm -> relu -> dropout(0.5)] then the length-aware,
@@ -296,7 +299,7 @@ def encode(model: Tacotron2, text: torch.Tensor, text_lengths: torch.Tensor,
     new_stats: Stats = {}
     for i, seq in enumerate(model.encoder.convolutions):
         x = _conv_bn_apply(seq, f"encoder.convolutions.{i}.1", x, stats,
-                           new_stats, training, compute_dtype)
+                           new_stats, training, compute_dtype, bn_group)
         x = _drop(torch.relu(x), generator, training)
     memory = bilstm(*encoder_lstm_weights(model), x, text_lengths,
                     compute_dtype=compute_dtype, packed=packed_lstm)
@@ -772,7 +775,8 @@ def decode_chunk(model: Tacotron2, carry: StreamCarry, memory: torch.Tensor,
 def postnet_apply(model: Tacotron2, mels: torch.Tensor, cfg: Tacotron2Config,
                   *, compute_dtype=None, stats: Optional[Stats] = None,
                   training: bool = False,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  bn_group=None):
     """5x [conv5 -> batchnorm (-> tanh) -> dropout(0.5)] (reference
     Postnet, model.py:103-146; the JAX package's ``postnet_apply``);
     returns the fp32 residual to add, or in training (residual, the new
@@ -782,7 +786,7 @@ def postnet_apply(model: Tacotron2, mels: torch.Tensor, cfg: Tacotron2Config,
     convs = model.postnet.convolutions
     for i, seq in enumerate(convs):
         x = _conv_bn_apply(seq, f"postnet.convolutions.{i}.1", x, stats,
-                           new_stats, training, compute_dtype)
+                           new_stats, training, compute_dtype, bn_group)
         if i < len(convs) - 1:
             x = torch.tanh(x)
         x = _drop(x, generator, training)
@@ -1011,15 +1015,17 @@ def forward(model: Tacotron2, stats: Stats, text: torch.Tensor,
             text_lengths: torch.Tensor, mels: torch.Tensor,
             output_lengths: torch.Tensor, cfg: Tacotron2Config, *,
             training: bool, generator: Optional[torch.Generator] = None,
-            compute_dtype=None, keep: Optional[train_scan.Keep] = None
-            ) -> Tuple[ForwardOutput, Stats]:
+            compute_dtype=None, keep: Optional[train_scan.Keep] = None,
+            bn_group=None) -> Tuple[ForwardOutput, Stats]:
     """Teacher-forced forward pass (reference Tacotron2.forward,
     model.py:499-515; the JAX package's ``forward``). ``stats`` are the
     batchnorm running statistics (``bn_stats``); the new ones come back as
     values. ``generator=None`` runs no dropout anywhere (the JAX package's
-    ``rng=None``)."""
+    ``rng=None``). ``bn_group``: the process group of data-parallel ranks
+    over which training batchnorm takes its statistics (None: this
+    process's batch alone)."""
     kw = dict(stats=stats, training=training, generator=generator,
-              compute_dtype=compute_dtype)
+              compute_dtype=compute_dtype, bn_group=bn_group)
     new_stats = dict(stats)
 
     def run(fn, *args):  # the output, the new statistics kept

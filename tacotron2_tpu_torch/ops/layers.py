@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -80,20 +81,56 @@ def batchnorm(x: torch.Tensor, running_mean: torch.Tensor,
     return y.to(x.dtype)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a process group's ranks, differentiable: the gradient
+    of each rank's input is the sum of every rank's output gradient. (The
+    same as ``torch.distributed.nn.functional.all_reduce``, which PyTorch
+    2.13 deprecates.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 def batchnorm_train(x: torch.Tensor, running_mean: torch.Tensor,
                     running_var: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, momentum: float = 0.1,
-                    eps: float = 1e-5):
+                    eps: float = 1e-5, group=None):
     """Training-mode batchnorm over (B, T, C) (the JAX package's
     ``batchnorm(training=True)``): normalise with the batch statistics over
     (B, T) in fp32. Returns (y in x's dtype, new running mean, new running
     var), the running estimates as values (momentum convention
     new = (1-m)*old + m*batch, the unbiased variance going in), so that a
-    caller can still keep the old ones; nothing is updated in place."""
+    caller can still keep the old ones; nothing is updated in place.
+
+    ``group``: a ``torch.distributed`` process group whose ranks hold rows
+    of one global batch, each the same shape. The statistics are then the
+    global batch's, as under the JAX package's dp-sharded jit (its
+    ``training/state.py:10-14``): the mean is the ranks' mean of their
+    means, the variance the ranks' mean of their mean square about it, n
+    the global B*T. The all-reduce is differentiable (its backward sums
+    the ranks' gradients, ``_AllReduceSum``), so the backward through the
+    statistics is the global batch's too."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 1))
-    var = (x32 - mean).square().mean(dim=(0, 1))
     n = x.shape[0] * x.shape[1]
+    if group is None:
+        mean = x32.mean(dim=(0, 1))
+        var = (x32 - mean).square().mean(dim=(0, 1))
+    else:
+        world = dist.get_world_size(group)
+        mean = _AllReduceSum.apply(x32.mean(dim=(0, 1)), group) / world
+        var = _AllReduceSum.apply((x32 - mean).square().mean(dim=(0, 1)),
+                                  group) / world
+        n *= world
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))
         new_mean = (1 - momentum) * running_mean + momentum * mean

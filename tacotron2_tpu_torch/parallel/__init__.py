@@ -1,0 +1,18 @@
+"""Data parallelism over ``torch.distributed``: the process group and mesh,
+the replicated state, the data-parallel train and eval steps."""
+
+from tacotron2_tpu_torch.parallel.mesh import (Mesh, create_mesh,
+                                               initialize_distributed,
+                                               local_device, local_rows,
+                                               shard_batch)
+from tacotron2_tpu_torch.parallel.sharding import replicate_state
+from tacotron2_tpu_torch.parallel.step import (all_reduce_mean,
+                                               make_eval_step,
+                                               make_train_step)
+
+__all__ = [
+    "Mesh", "create_mesh",
+    "initialize_distributed", "local_device", "local_rows", "shard_batch",
+    "replicate_state", "all_reduce_mean", "make_eval_step",
+    "make_train_step",
+]

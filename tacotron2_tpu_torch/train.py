@@ -7,12 +7,18 @@ plus ``--device``:
         [-c CKPT] [--warm_start] [--hparams k=v,k=v] [--device cuda|cpu]
 
 It trains on one CUDA device unless ``--device cpu`` is given, and stops
-with an error when CUDA is asked for and no card is present.
+with an error when CUDA is asked for and no card is present. Under
+torchrun it trains data-parallel, one rank a card (NCCL; gloo with
+``--device cpu``), ``batch_size`` being the global batch:
+
+    torchrun --nproc_per_node=N -m tacotron2_tpu_torch.train -o outdir ...
 """
 
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 from tacotron2_tpu_torch.config import create_config
 from tacotron2_tpu_torch.data import DataPipeline, TextMelDataset
@@ -44,13 +50,17 @@ def main(argv=None) -> None:
         warm_start_path=args.checkpoint_path if args.warm_start else None,
         device=args.device)
 
+    # every rank reads the same global batches and takes its rows of each
+    whole = dict(process_index=0, process_count=1)
     train_data = DataPipeline(
-        TextMelDataset(config.training_files, config), config)
+        TextMelDataset(config.training_files, config), config, **whole)
     val_data = DataPipeline(
         TextMelDataset(config.validation_files, config, shuffle=False),
-        config, drop_last=False)
+        config, drop_last=False, **whole)
 
     trainer.fit(train_data, val_data)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

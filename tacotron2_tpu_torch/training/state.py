@@ -139,17 +139,20 @@ def _check_device(state: TrainState, batch: Batch) -> None:
 
 
 def loss_and_grads(state: TrainState, batch: Batch, cfg: Tacotron2Config,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, group=None):
     """The training forward, the loss and the gradient of every parameter
     by name: (LossBreakdown, grads, new batchnorm statistics,
-    ForwardOutput)."""
+    ForwardOutput). ``group``: the data-parallel process group whose ranks
+    hold the rest of the global batch; batchnorm takes its statistics over
+    all of it (``parallel/step.py``)."""
     _check_device(state, batch)
     params = dict(state.model.named_parameters())
     with torch.enable_grad():
         output, new_stats = model_lib.forward(
             state.model, state.stats, batch.text, batch.text_lengths,
             batch.mel, batch.mel_lengths, cfg, training=True,
-            generator=generator, compute_dtype=compute_dtype(cfg))
+            generator=generator, compute_dtype=compute_dtype(cfg),
+            bn_group=group)
         loss = tacotron2_loss(output, batch.mel, batch.gate_target)
         grads = torch.autograd.grad(loss.total, list(params.values()),
                                     allow_unused=True)

@@ -1,4 +1,5 @@
-"""The training loop: the reference ``train()`` on one device.
+"""The training loop: the reference ``train()``, on one device or on
+data-parallel ranks.
 
 The port's counterpart of the JAX package's ``training/trainer.py``
 (reference train.py:149-255): epoch loop, logging at a cadence, periodic
@@ -6,13 +7,22 @@ validation and checkpoint, resume and warm start, a learning rate set per
 step, and steps whose loss is not finite skipped on the device
 (``training/state.py:guarded_update``). Host batch assembly and the copy to
 the card run one batch ahead (``data/pipeline.py``); checkpoints are
-written in the background. One device: the mesh and ``parallel`` wait for
-the port of ``parallel/``.
+written in the background.
 
-Dropout is drawn from a generator on the device seeded from
-``(config.seed, step)``, so a resumed run draws what an uninterrupted one
-would; validation's prenet dropout (``eval_prenet_dropout``) from
-``(config.seed, step, batch index)``.
+Under torchrun (or any initialised process group) each rank is a process
+with its own card: the state is replicated from rank 0, every rank iterates
+the same global batches and assembles its own rows of each, and the step
+syncs the batchnorm statistics and averages the gradients
+(``parallel/``). Rank 0 alone prints, logs and writes checkpoints.
+``config.grad_accum_steps > 1`` splits each step into micro-batches
+(``training/accumulate.py``).
+
+Dropout is drawn from generators on the device seeded from
+``(config.seed, step)`` (with the micro-batch index when there are several,
+and the rank when there are several), so a resumed run draws what an
+uninterrupted one would; validation's prenet dropout
+(``eval_prenet_dropout``) from ``(config.seed, step, batch index)`` and
+the rank.
 """
 
 from __future__ import annotations
@@ -29,15 +39,17 @@ import torch
 
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.data.pipeline import (DataPipeline, DeviceTransfer,
-                                               prefetch,
-                                               process_index_and_count)
+                                               prefetch)
 from tacotron2_tpu_torch.models import tacotron2 as model_lib
+from tacotron2_tpu_torch.parallel import (create_mesh, initialize_distributed,
+                                          local_device, local_rows,
+                                          make_eval_step, make_train_step,
+                                          replicate_state)
 from tacotron2_tpu_torch.training.checkpoint import Checkpointer, warm_start
 from tacotron2_tpu_torch.training.logging import MetricLogger
 from tacotron2_tpu_torch.training.state import (Batch, StepMetrics,
                                                 TrainState,
-                                                create_train_state, eval_step,
-                                                train_step)
+                                                create_train_state)
 
 _TRAIN, _EVAL = 0, 1  # streams of derived seeds
 
@@ -69,14 +81,17 @@ class Trainer:
         # debug_nans and prng_impl steer JAX only and are ignored here:
         # non-finite steps are skipped on the device, and dropout comes
         # from torch generators (config.IGNORED_KNOBS).
+        device = local_device(device)  # cuda:LOCAL_RANK under torchrun
+        initialize_distributed(device=device)
         config.validate()
-        if config.grad_accum_steps != 1:
-            raise NotImplementedError(
-                "grad_accum_steps > 1 (training/accumulate.py) is not ported "
-                "yet (ROADMAP.md, section A.2)")
         self.config = config
         self.device = model_lib.resolve_device(device)
-        self.is_main = process_index_and_count()[0] == 0
+        # mesh_shape=(1,1) (the default) means every rank on dp
+        self.mesh = create_mesh(config.mesh_shape
+                                if int(np.prod(config.mesh_shape)) > 1
+                                else None)
+        local_rows(config.batch_size, self.mesh, config.grad_accum_steps)
+        self.is_main = self.mesh.rank == 0
         self.checkpointer = Checkpointer(output_directory)
         self.logger = MetricLogger(os.path.join(output_directory,
                                                 log_directory))
@@ -96,14 +111,23 @@ class Trainer:
                                                    checkpoint_path)
             if not config.use_saved_learning_rate:
                 self.state.learning_rate.fill_(config.learning_rate)
-            print(f"Resumed from step {int(self.state.step)}")
+            if self.is_main:
+                print(f"Resumed from step {int(self.state.step)}")
         elif warm_start_path:
             warm_start(self.state.model, warm_start_path,
                        config.ignore_layers)
             self.state = self.state._replace(
                 stats=model_lib.bn_stats(self.state.model))
-            print(f"Warm-started from {warm_start_path} "
-                  f"(ignoring {config.ignore_layers})")
+            if self.is_main:
+                print(f"Warm-started from {warm_start_path} "
+                      f"(ignoring {config.ignore_layers})")
+        replicate_state(self.state, self.mesh)
+        self.train_step_fn = make_train_step(config, self.mesh)
+        self.eval_step_fn = make_eval_step(config, self.mesh)
+        if self.is_main and self.mesh.group is not None:
+            print(f"Process group: backend "
+                  f"{torch.distributed.get_backend()}, data parallel over "
+                  f"{self.mesh.dp} rank(s)")
         self._lr = float(self.state.learning_rate)
         self.last_fit: Optional[FitTiming] = None
         # ("train" | "val", T_in, T_out) of every batch run, for the record
@@ -111,9 +135,29 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
-    def step_generator(self, step: int) -> torch.Generator:
-        """The dropout generator of training step ``step`` (0-based)."""
-        return derived_generator(self.device, self.config.seed, _TRAIN, step)
+    def step_generators(self, step: int) -> List[torch.Generator]:
+        """The dropout generators of training step ``step`` (0-based), one
+        a micro-batch: seeded from (seed, step), then the micro-batch index
+        when there are several, then the rank when there are several."""
+        n_micro = self.config.grad_accum_steps
+        rank = (self.mesh.rank,) if self.mesh.dp > 1 else ()
+        base = (self.config.seed, _TRAIN, step)
+        if n_micro == 1:
+            return [derived_generator(self.device, *base, *rank)]
+        return [derived_generator(self.device, *base, i, *rank)
+                for i in range(n_micro)]
+
+    def _rows(self, pipeline: DataPipeline, n_micro: int
+              ) -> Optional[np.ndarray]:
+        """This rank's rows of the pipeline's global batches; None with
+        one rank (every row)."""
+        if self.mesh.dp == 1:
+            return None
+        if pipeline.process_count != 1:
+            raise ValueError(
+                "data-parallel ranks read the same global batches: build "
+                "the pipeline with process_index=0, process_count=1")
+        return local_rows(pipeline.batch_size, self.mesh, n_micro)
 
     def fit(self, train_pipeline: DataPipeline,
             val_pipeline: Optional[DataPipeline] = None,
@@ -135,6 +179,7 @@ class Trainer:
         step = int(self.state.step)  # host-side mirror of the step counter
         start_epoch = step // steps_per_epoch if steps_per_epoch else 0
         frames_per_audio_sec = cfg.sampling_rate / cfg.hop_length
+        rows = self._rows(train_pipeline, cfg.grad_accum_steps)
         transfer = (DeviceTransfer(self.device)
                     if self.device.type == "cuda" else None)
         t_fit = time.perf_counter()
@@ -150,7 +195,7 @@ class Trainer:
             for epoch in range(start_epoch, epochs):
                 skip = first - epoch * steps_per_epoch \
                     if epoch == start_epoch else 0
-                yield from train_pipeline.epoch(epoch, skip=skip)
+                yield from train_pipeline.epoch(epoch, skip=skip, rows=rows)
 
         batches = prefetch(epochs_from(step), depth=2, transfer=transfer)
         epoch = None
@@ -177,8 +222,8 @@ class Trainer:
                 # The metrics stay on the device: a non-finite step is
                 # skipped inside guarded_update, so the host reads the loss
                 # only at the logging cadence and runs ahead in between.
-                self.state, metrics, _ = train_step(
-                    self.state, batch, cfg, self.step_generator(step))
+                self.state, metrics = self.train_step_fn(
+                    self.state, batch, self.step_generators(step))
                 step += 1
                 steps_run += 1
                 t_now = time.perf_counter()
@@ -189,7 +234,8 @@ class Trainer:
                 if on_step is not None:
                     on_step(step, metrics)
                 interval_steps += 1
-                interval_frames += int(np.prod(batch.mel.shape[:2]))
+                interval_frames += (int(np.prod(batch.mel.shape[:2]))
+                                    * self.mesh.dp)
 
                 at_ckpt = step % cfg.iters_per_checkpoint == 0
                 if at_ckpt or step % cfg.log_interval == 0:
@@ -228,17 +274,24 @@ class Trainer:
         cfg = self.config
         total, weight = 0.0, 0.0
         last = None
-        for i, batch in enumerate(val_pipeline.epoch(0)):
+        rank = (self.mesh.rank,) if self.mesh.dp > 1 else ()
+        rows = self._rows(val_pipeline, 1)
+        for i, batch in enumerate(val_pipeline.epoch(0, rows=rows)):
             batch = Batch(*(None if t is None else t.to(self.device)
                             for t in batch))
             self.shapes_met.add(("val", batch.text.shape[1],
                                  batch.mel.shape[1]))
-            gen = (derived_generator(self.device, cfg.seed, _EVAL, step, i)
+            gen = (derived_generator(self.device, cfg.seed, _EVAL, step, i,
+                                     *rank)
                    if cfg.eval_prenet_dropout else None)
-            breakdown, output = eval_step(self.state, batch, cfg, gen)
-            n_valid = (float(batch.row_valid.sum())
-                       if batch.row_valid is not None
-                       else float(batch.text.shape[0]))
+            # the loss of the whole global batch (every rank's rows)
+            breakdown, output = self.eval_step_fn(self.state, batch, gen)
+            valid = (batch.row_valid.sum() if batch.row_valid is not None
+                     else torch.tensor(float(batch.text.shape[0]),
+                                       device=self.device))
+            if self.mesh.group is not None:
+                torch.distributed.all_reduce(valid, group=self.mesh.group)
+            n_valid = float(valid)
             total += float(breakdown.total) * n_valid
             weight += n_valid
             last = (output, batch)

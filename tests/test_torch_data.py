@@ -151,9 +151,13 @@ def test_dataset_keeps_computed_mels_within_its_budget(corpus,
     np.testing.assert_array_equal(small[1][1], again)
 
 
-def test_native_extractor_is_refused(corpus):
+def test_native_extractor_is_refused(corpus, monkeypatch, tmp_path):
+    """``use_native=True`` without the built library raises (the JAX
+    package's semantics); False takes numpy."""
+    from tacotron2_tpu_torch.data import native
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    monkeypatch.setattr(native, "_LIB_PATH", str(tmp_path / "absent.so"))
+    with pytest.raises(RuntimeError, match="native/build.sh"):
         tdata.TextMelDataset(corpus, tcfg, use_native=True)
     assert len(tdata.TextMelDataset(corpus, tcfg, use_native=False)) == 8
 

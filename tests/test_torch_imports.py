@@ -58,7 +58,9 @@ def test_importing_every_module_loads_no_jax():
                 "models.waveglow", "convert_waveglow", "http_server",
                 "training.vocoder_trainer", "training.hifigan_trainer",
                 "training.audio_batch", "tools.train_vocoder",
-                "tools.train_hifigan"):
+                "tools.train_hifigan", "parallel.mesh", "parallel.sharding",
+                "parallel.step", "training.accumulate",
+                "training.loss_scaler", "utils.profiling", "data.native"):
         assert f"tacotron2_tpu_torch.{new}" in out
     assert [m for m in out if _forbidden(m)] == []
 
@@ -126,6 +128,10 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["-c", "unused", "-t", "hi"] if main is infer.main
                  else ["-c", "unused"])
+    # refused before the file is read
+    from tacotron2_tpu_torch.convert_waveglow import load_waveglow_checkpoint
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_waveglow_checkpoint("unused.pt", WG)
 
 
 def test_int8_weights_are_refused():

@@ -250,8 +250,10 @@ def test_learning_rate_schedule_is_applied(tmp_path, corpus):
 
 
 def test_gradient_accumulation_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(CFG.replace(grad_accum_steps=2), str(tmp_path / "run"),
+    """A batch that does not split into the micro-batches is refused when
+    the Trainer is built (batch_size 2, 3 micro-batches)."""
+    with pytest.raises(ValueError, match="divisible"):
+        Trainer(CFG.replace(grad_accum_steps=3), str(tmp_path / "run"),
                 device="cpu")
 
 

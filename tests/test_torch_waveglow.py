@@ -244,7 +244,7 @@ def test_convert_waveglow_matches_the_jax_converter(fused_cond, tmp_path):
     path = tmp_path / "waveglow.pt"
     torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}},
                path)
-    model = tconv.load_waveglow_checkpoint(str(path), cfg)
+    model = tconv.load_waveglow_checkpoint(str(path), cfg, device="cpu")
     rng = np.random.RandomState(5)
     mel = rng.randn(B, 10, cfg.n_mel_channels).astype(np.float32)
     audio = (rng.randn(B, 40) * 0.3).astype(np.float32)
