@@ -110,7 +110,12 @@ on failure:
     dropout) against one process's ``train_step`` at B=128 (DP_REL), the
     same with each rank's batch statistics its own rejected, both ranks'
     states equal bit for bit, rows 1-4 in each rank's torch.profiler
-    window and no plain version; then ``Trainer.fit`` on two ranks (the
+    window and no plain version; the same two ranks on a ``(1, 2)`` mesh
+    (the model-parallel axis: each holds half of every sharded leaf's Adam
+    moments and all-gathers the updated halves) against one process at
+    B=128, bit for bit when two runs of one process are (else within
+    MP_SPREAD_X times their gap), the step without its all-gather
+    rejected; then ``Trainer.fit`` on two ranks (the
     tone demo's config over ``use_native=True`` after ``native/build.sh``):
     checkpoints from rank 0 only, a resume equal bit for bit,
     ``grad_accum_steps=2`` launching rows 1-4 twice a step,
@@ -118,13 +123,26 @@ on failure:
     ``python -m tacotron2_tpu_torch.train`` under a one-rank torchrun
     environment over NCCL.
 
+Between phases 11 and 12 the benchmarks: ``python -m
+tacotron2_tpu_torch.bench`` in a process of its own (root bench.py's JSON
+line, its step within BENCH_STEP_REL of phase 9's, rows 1-4 once a step),
+then ``bench_buckets``, ``bench_default`` and every ``bench_details`` stage
+in process, briefly. After phase 15: ``tools/cache_mels`` on the card over
+phase 13's tone filelist (row 8 once an utterance, each mel against row 8's
+plain version and the numpy path, read back by ``TextMelDataset``), and
+the inference demo on a native checkpoint and a reference-format
+state_dict (a WAV, the line on its plots, row 3).
+
 ``python3 chip_smoke.py --dp-cards N`` runs phase 16 alone on a machine
-with N cards: one rank a card over NCCL, N x B=128/N against one process.
+with N cards: one rank a card over NCCL, N x B=128/N against one process,
+and a ``(N / 2, 2)`` mesh against it within DP_REL.
 
 The second-to-last line is the ``kernels`` JSON object (times, bounds,
 launches, errors; ``launches_http_server``, ``launches_audio_batch``,
-``launches_infer_cli`` and ``launches_data_parallel`` count the new paths);
-the last is the device line.
+``launches_infer_cli``, ``launches_data_parallel``, ``launches_bench``,
+``launches_bench_scripts``, ``launches_model_parallel``,
+``launches_cache_mels`` and ``launches_inference_demo`` count the other
+paths); the last is the device line.
 """
 
 from __future__ import annotations
@@ -1840,7 +1858,7 @@ def train_phase(cfg, dev, card, seed):
     bf16, dropout on): ``create_train_state`` with seeded weights, one warm
     step, three timed steps through ``train_step``; every kernel of the
     path must launch and no plain version may run. Then one step timed by
-    stage."""
+    stage. Returns (the launch counts, ms a timed step)."""
     B, T_in, T_out = (TRAIN_SHAPE[k] for k in ("B", "T_in", "T_out"))
     state = tstate.create_train_state(
         cfg, generator=torch.Generator().manual_seed(seed), device=dev)
@@ -1919,7 +1937,7 @@ def train_phase(cfg, dev, card, seed):
           f" ms): " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     print(f"training profile [{card}] one step: " + profile_kernels(
         lambda: tstate.train_step(state, batch, cfg, gen), top=16))
-    return counts
+    return counts, wall / 3 * 1e3
 
 
 # The bf16 training step with row 3 against the same step with row 3's plain
@@ -2801,19 +2819,18 @@ def _run_cli(argv, counted, timeout=300):
     """``python -m tacotron2_tpu_torch.infer argv`` in a process of its own
     from the repository's root; ``counted`` runs the module the same way
     (runpy, as -m does) behind a line that prints its launch counts."""
-    cmd = ([sys.executable, "-c", CLI_COUNTED] if counted else
-           [sys.executable, "-m", "tacotron2_tpu_torch.infer"]) + argv
+    if counted:
+        _, launches, wall = _run_counted(CLI_COUNTED, argv, "the infer CLI",
+                                         timeout)
+        return wall, launches
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+    out = subprocess.run([sys.executable, "-m", "tacotron2_tpu_torch.infer",
+                          *argv], cwd=REPO, capture_output=True, text=True,
                          timeout=timeout)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
         fail(f"the infer CLI exited {out.returncode}: {out.stderr[-3000:]}")
-    launches = None
-    for line in out.stdout.splitlines():
-        if line.startswith("LAUNCHES "):
-            launches = json.loads(line[len("LAUNCHES "):])
-    return wall, launches
+    return wall, None
 
 
 def _check_cli_outputs(prefix, n_texts, cfg, vocoder):
@@ -3195,6 +3212,315 @@ def audio_batch_phase(dev, card, seed, filelist):
 
 
 
+# ------------------------------------------------------- the scripts
+
+def _rows_1_4_counted(module):
+    """Python source that runs ``module`` as ``-m`` runs it (runpy), then
+    prints a ``LAUNCHES`` line: rows 1-4's launches and the calls of their
+    plain versions (``plain``)."""
+    return (
+        "import json, runpy\n"
+        "from tacotron2_tpu_torch.kernels import encoder_lstm, train_scan\n"
+        f"runpy.run_module({module!r}, run_name='__main__', "
+        "alter_sys=True)\n"
+        "print('LAUNCHES ' + json.dumps({\n"
+        "    'encoder_lstm_fwd': encoder_lstm.bilstm_forward.launches,\n"
+        "    'encoder_lstm_bwd': encoder_lstm.bilstm_backward.launches,\n"
+        "    'train_scan_fwd': train_scan.forward_residuals.launches,\n"
+        "    'train_scan_bwd': train_scan.backward_chain.launches,\n"
+        "    'plain': sum(f.calls for f in (\n"
+        "        encoder_lstm.bilstm_forward_plain,\n"
+        "        encoder_lstm.bilstm_backward_plain,\n"
+        "        train_scan.forward_residuals_plain,\n"
+        "        train_scan.backward_chain_plain))}))\n")
+
+
+CACHE_COUNTED = (
+    "import json, runpy\n"
+    "from tacotron2_tpu_torch.kernels import mel_kernel\n"
+    "runpy.run_module('tacotron2_tpu_torch.tools.cache_mels', "
+    "run_name='__main__', alter_sys=True)\n"
+    "print('LAUNCHES ' + json.dumps({\n"
+    "    'mel_spectrogram_fused': mel_kernel.mel_spectrogram_fused.launches,\n"
+    "    'plain': mel_kernel.mel_spectrogram_fused_plain.calls}))\n")
+# bench.py's protocol: one warm step, then this many timed steps
+BENCH_STEPS = 10
+# the in-process benches: timed training steps, and the share of the JAX
+# script's timed inference calls (30 a decode, 15 a WaveGlow, 40 a HiFi-GAN)
+SCRIPT_STEPS, SCRIPT_REPS = 3, 0.2
+# bench.py's step time against train_phase's at the same shape, in the same
+# run: the two time the same step the same way (steps queued, one
+# synchronise after the last), so a gap beyond this means they measure
+# different things
+BENCH_STEP_REL = 0.10
+SCRIPT_KERNELS = {**TRAIN_KERNELS, **UTTERANCE_KERNELS}
+SCRIPT_PLAIN = tuple(set(PLAIN_VERSIONS + UTTERANCE_PLAIN))
+
+
+def _run_counted(code, argv, what, timeout=300):
+    """``code`` (a runpy wrapper behind a ``LAUNCHES`` line) with ``argv``
+    in a process of its own from the repository's root. Returns (stdout
+    without the LAUNCHES line, the launches, wall seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code, *argv], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"{what} exited {out.returncode}: {out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    counted = [l for l in lines if l.startswith("LAUNCHES ")]
+    if len(counted) != 1:
+        fail(f"{what}: no launch-count line in {out.stdout[-2000:]}")
+    launches = json.loads(counted[0][len("LAUNCHES "):])
+    return ([l for l in lines if not l.startswith("LAUNCHES ")], launches,
+            wall)
+
+
+def _all_finite(obj):
+    if isinstance(obj, dict):
+        return all(_all_finite(v) for v in obj.values())
+    return isinstance(obj, (int, float)) and math.isfinite(obj) and obj > 0
+
+
+def bench_phase(cfg, dev, card, train_ms):
+    """The port's benchmarks: ``python -m tacotron2_tpu_torch.bench`` in a
+    process of its own (one JSON line with root bench.py's four keys,
+    ``vs_baseline`` its value over sampling_rate / hop_length, its step time
+    within BENCH_STEP_REL of ``train_phase``'s ``train_ms``, rows 1-4
+    launched once a step, warm step included, no plain version); then
+    ``bench_buckets``, ``bench_default`` and every ``bench_details`` stage
+    in this process at SCRIPT_STEPS timed steps and SCRIPT_REPS of the
+    inference repetitions, every field finite. Returns the launch counts
+    (the bench process's, and the three scripts' together)."""
+    from tacotron2_tpu_torch.tools import (bench_buckets, bench_default,
+                                           bench_details)
+    lines, launches, wall = _run_counted(
+        _rows_1_4_counted("tacotron2_tpu_torch.bench"), [], "the bench")
+    results = [json.loads(l) for l in lines if l.startswith("{")]
+    if len(results) != 1 or list(results[0]) != [
+            "metric", "value", "unit", "vs_baseline"]:
+        fail(f"the bench printed {lines}")
+    line = results[0]
+    frames_per_audio_s = cfg.sampling_rate / cfg.hop_length
+    if (line["metric"] != "train_mel_frames_per_s_per_chip"
+            or line["unit"] != "mel-frames/s/chip"
+            or abs(line["vs_baseline"] - line["value"] / frames_per_audio_s)
+            > 0.01):
+        fail(f"the bench's line: {line}")
+    B, T_out = (TRAIN_SHAPE[k] for k in ("B", "T_out"))
+    bench_ms = B * T_out / line["value"] * 1e3
+    gap = bench_ms / train_ms - 1
+    want = {k: 1 + BENCH_STEPS for k in TRAIN_KERNELS}
+    if {k: launches[k] for k in TRAIN_KERNELS} != want or launches["plain"]:
+        fail(f"the bench's launches {launches}, not {want} and no plain "
+             f"version")
+    print(f"bench [{card}] python -m tacotron2_tpu_torch.bench: {line}; a "
+          f"step {bench_ms:.2f} ms against train_phase's {train_ms:.2f} ms "
+          f"({gap:+.2%}, limit {BENCH_STEP_REL:.0%}); launches {launches}; "
+          f"process wall {wall:.1f} s")
+    if abs(gap) > BENCH_STEP_REL:
+        fail(f"the bench's step ({bench_ms:.2f} ms) is {gap:+.2%} from "
+             f"train_phase's ({train_ms:.2f} ms)")
+
+    for fn in SCRIPT_KERNELS.values():
+        fn.launches = 0
+    plain0 = sum(f.calls for f in SCRIPT_PLAIN)
+    t0 = time.perf_counter()
+    buckets = bench_buckets.run(SCRIPT_STEPS, dev)
+    default = bench_default.run(SCRIPT_STEPS, dev)
+    details = bench_details.Bench(dev, SCRIPT_STEPS, SCRIPT_REPS).run(
+        bench_details.STAGES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in SCRIPT_KERNELS.items()}
+    plain = sum(f.calls for f in SCRIPT_PLAIN) - plain0
+    if not all(map(_all_finite, (buckets, default, details))):
+        fail(f"bench scripts: a field is not finite: {buckets}, {default}, "
+             f"{details}")
+    for name in SCRIPT_KERNELS:
+        if name != "mel_spectrogram_fused" and counts[name] == 0:
+            fail(f"the bench scripts never launched the {name} kernel")
+    if plain:
+        fail(f"the bench scripts ran a plain version {plain} times")
+    print(f"bench scripts [{card}] bench_buckets at {SCRIPT_STEPS} timed "
+          f"steps: {json.dumps(buckets)}; bench_default: "
+          f"{json.dumps(default)}; bench_details (every stage, "
+          f"{SCRIPT_REPS} of the repetitions): {json.dumps(details)}; "
+          f"launches {counts}; {wall:.1f} s")
+    return launches, counts
+
+
+# The linear mel value above which a cached mel is held in the log domain
+# within MEL_LOG_ATOL. Below it the log turns fp32's rounding (a linear gap
+# of well under 1e-6 on the tone corpus) into more than MEL_LOG_ATOL, for
+# row 8 and its plain fp32 version alike: cache_mels_phase prints both
+# paths' log gaps to the numpy path above each of CACHE_LOG_FLOORS.
+CACHE_LOG_FLOOR = 1e-2
+CACHE_LOG_FLOORS = (1e-4, 1e-3, 1e-2)
+
+
+def _loud_log_gap(a, b, floor=CACHE_LOG_FLOOR):
+    """max |a - b| of two log-mel tensors over the bins where both linear
+    values exceed ``floor``."""
+    loud = torch.minimum(a, b).exp() > floor
+    return float((a - b).abs()[loud].max())
+
+
+def cache_mels_phase(cfg, dev, card, filelist, root):
+    """``python -m tacotron2_tpu_torch.tools.cache_mels`` on the card in a
+    process of its own over the tone filelist: row 8 once an utterance, no
+    plain version; each .npy against row 8's plain version on the same wav
+    and against the numpy path (``mel_spectrogram_np``, a float64 DFT), by
+    linear share within AUDIO_MEL_REL, as ``audio_batch_phase`` holds row
+    8's targets on this corpus, and in the log domain within MEL_LOG_ATOL
+    on the bins where both linear values exceed CACHE_LOG_FLOOR; a mel
+    perturbed at its peak fails the first, one perturbed at its quietest
+    bin above the floor fails the second;
+    ``TextMelDataset(load_mel_from_disk=True)`` over the ``--out``
+    filelist returns those mels. Returns row 8's launches."""
+    from tacotron2_tpu_torch.data.dataset import (TextMelDataset,
+                                                  load_filelist, load_wav,
+                                                  mel_spectrogram_np)
+    out_list = root / "mels.txt"
+    lines, launches, wall = _run_counted(
+        CACHE_COUNTED, [str(filelist), "--out", str(out_list)],
+        "cache_mels")
+    entries = load_filelist(filelist)
+    n = len(entries)
+    if launches != {"mel_spectrogram_fused": n, "plain": 0}:
+        fail(f"cache_mels: launches {launches} for {n} utterances")
+    mc = tmel.MelConfig.from_config(cfg)
+    worst = {"plain": 0.0, "numpy": 0.0}
+    worst_log = {"plain": 0.0, "numpy": 0.0}
+    readings = {k: dict.fromkeys(CACHE_LOG_FLOORS, 0.0)
+                for k in ("row 8", "plain")}
+    log_at = (0.0, 0.0)
+    for path, _ in entries:
+        got = torch.from_numpy(np.load(os.path.splitext(path)[0] + ".npy"))
+        audio, _ = load_wav(path)
+        audio = audio / cfg.max_wav_value
+        want = {"plain": mk.mel_spectrogram_fused_plain(torch.from_numpy(
+                    audio.astype(np.float32))[None].to(dev), mc)[0].cpu(),
+                "numpy": torch.from_numpy(mel_spectrogram_np(audio, mc))}
+        if got.shape != want["numpy"].shape or got.dtype != torch.float32:
+            fail(f"cache_mels: {path}: {tuple(got.shape)} {got.dtype}")
+        for k, w in want.items():
+            share = _linear_share(got, w)
+            worst[k] = max(worst[k], share)
+            if share > AUDIO_MEL_REL:
+                fail(f"cache_mels: {path}: {share} of the largest linear "
+                     f"value against the {k} path (limit {AUDIO_MEL_REL})")
+            gap = _loud_log_gap(got, w)
+            worst_log[k] = max(worst_log[k], gap)
+            if gap > MEL_LOG_ATOL:
+                fail(f"cache_mels: {path}: {gap} in the log domain against "
+                     f"the {k} path on the bins above {CACHE_LOG_FLOOR} "
+                     f"(limit {MEL_LOG_ATOL})")
+        for k, a in (("row 8", got), ("plain", want["plain"])):
+            for f in CACHE_LOG_FLOORS:
+                readings[k][f] = max(readings[k][f], _loud_log_gap(
+                    a, want["numpy"], f))
+        log_err = (got - want["plain"]).abs()
+        at = int(log_err.argmax())
+        if float(log_err.flatten()[at]) > log_at[0]:
+            log_at = (float(log_err.flatten()[at]),
+                      float(want["plain"].flatten()[at]))
+    bad = got.clone()
+    peak = np.unravel_index(int(want["numpy"].argmax()), tuple(got.shape))
+    bad[peak] += math.log1p(10 * AUDIO_MEL_REL)
+    if any(_linear_share(bad, w) <= AUDIO_MEL_REL for w in want.values()):
+        fail("the cache_mels comparison passes a perturbed mel")
+    quiet = np.unravel_index(int(want["numpy"].masked_fill(
+        torch.minimum(got, want["numpy"]).exp() <= CACHE_LOG_FLOOR,
+        math.inf).argmin()), tuple(got.shape))
+    bad = got.clone()
+    bad[quiet] += 10 * MEL_LOG_ATOL
+    if any(_loud_log_gap(bad, w) <= MEL_LOG_ATOL for w in want.values()):
+        fail("the cache_mels log-domain comparison passes a mel perturbed "
+             "at a quiet bin")
+    quiet_share = _linear_share(bad, want["numpy"])
+    ds = TextMelDataset(str(out_list), cfg.replace(load_mel_from_disk=True),
+                        shuffle=False)
+    for i, (npy, _) in enumerate(ds.entries):
+        if not np.array_equal(ds[i][1], np.load(npy)):
+            fail(f"TextMelDataset read {npy} as another mel")
+    print(f"cache_mels [{card}] {n} tone utterances on the card: row 8 "
+          f"launched {launches['mel_spectrogram_fused']} times, no plain "
+          f"version; of the largest linear value {worst['plain']:.2e} "
+          f"against row 8's plain version and {worst['numpy']:.2e} against "
+          f"the numpy path (limit {AUDIO_MEL_REL}); in the log domain on "
+          f"the bins above {CACHE_LOG_FLOOR} {worst_log['plain']:.2e} "
+          f"against the plain version and {worst_log['numpy']:.2e} against "
+          f"the numpy path (limit {MEL_LOG_ATOL}), on every bin max |err| "
+          f"against the plain version {log_at[0]:.2e}, at a log mel of "
+          f"{log_at[1]:.2f}; log gap to the numpy path above each linear "
+          f"floor " + json.dumps({k: {f"{f:g}": f"{v:.2e}" for f, v in
+                                       r.items()} for k, r in readings.items()})
+          + f"; mels perturbed at the peak and at a quiet bin (linear "
+          f"{math.exp(float(want['numpy'][quiet])):.2e}, a linear share of "
+          f"{quiet_share:.1e}) rejected; TextMelDataset("
+          f"load_mel_from_disk) reads them back; {lines[-1]}; process wall "
+          f"{wall:.1f} s")
+    return launches["mel_spectrogram_fused"]
+
+
+DEMO_STEPS = 200
+
+
+def demo_phase(cfg, dev, card, seed, root):
+    """The inference demo (``tools/inference_demo.main``) on a seeded
+    full-width model, saved as a native checkpoint and as a reference-
+    format state_dict, max_decoder_steps DEMO_STEPS: the WAV at the
+    config's rate, frames x hop samples (T - 1 for Griffin-Lim's last
+    frame), not silent; row 3 launched, no plain version; the line on the
+    plots names what was written (none without matplotlib). Returns row
+    3's launches."""
+    import contextlib
+    import io
+    import scipy.io.wavfile
+    from tacotron2_tpu_torch.tools import inference_demo
+    from tacotron2_tpu_torch.training.checkpoint import Checkpointer
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(seed),
+                         trainable=True)
+    paths = {"native": Checkpointer(str(root / "demo_run")).save(
+        tstate.state_for(model, cfg), wait=True)}
+    paths["reference state_dict"] = str(root / "demo_statedict.pt")
+    torch.save(model.state_dict(), paths["reference state_dict"])
+    del model
+    launches, report = 0, []
+    for kind, path in paths.items():
+        out_dir = root / f"demo_{len(report)}"
+        flags = ["--torch_checkpoint"] if kind != "native" else []
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            res, counts = _counted(f"the demo ({kind})", lambda: (
+                inference_demo.main(["-c", path, *flags, "-o", str(out_dir),
+                                     "--hparams",
+                                     f"max_decoder_steps={DEMO_STEPS}"])),
+                ("encoder_lstm_fwd",))
+        line = said.getvalue().strip().splitlines()[-1]
+        sr, wav = scipy.io.wavfile.read(out_dir / "demo.wav")
+        n = res.mel.shape[0]
+        rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+        if (sr != cfg.sampling_rate or wav.dtype != np.int16
+                or len(wav) != len(res.audio) or not rms > 0
+                or not (n - 1) * cfg.hop_length <= len(wav)
+                <= n * cfg.hop_length
+                or not np.isfinite(res.mel).all()):
+            fail(f"the demo ({kind}): rate {sr}, {wav.shape} {wav.dtype} "
+                 f"for {n} frames, rms {rms}")
+        pngs = sorted(p.name for p in out_dir.glob("*.png"))
+        if not (("no plots written" in line and not pngs)
+                or (pngs and all(p in line for p in pngs))):
+            fail(f"the demo ({kind}) said {line!r} and wrote {pngs}")
+        launches += counts["encoder_lstm_fwd"]
+        report.append(f"{kind}: {n} frames, {len(wav)} samples at {sr} Hz, "
+                      f"rms {rms:.1f}, row 3 {counts['encoder_lstm_fwd']} "
+                      f"launch(es); said {line!r}")
+    print(f"inference demo [{card}] " + "; ".join(report))
+    return launches
+
+
 # ------------------------------------------------------- data parallel
 
 DP_RANKS = 2
@@ -3229,22 +3555,16 @@ DP_TIMED_STEPS = 3   # steps after them, timed
 DP_REL = dict(loss=1.3e-3, grad_norm=1.1e-2, exp_avg=1.4, exp_avg_rss=1.1,
               running_mean=0.46, running_var=2.7e-2, param=2.5)
 DP_BN_BIAS = ".0.conv.bias"
+# The model-parallel step against one process's where two runs of one
+# process differ: this many times their largest gap (the repo's ~10x).
+MP_SPREAD_X = 10
 # the device kernel of each training row at these shapes (bf16, full width:
 # rows 1-2 on the tensor cores, rows 3-4 on clusters)
 DP_ROW_KERNELS = {"train_scan_fwd": "scan_cell_kernel",
                   "train_scan_bwd": "attn_lstm_kernel",
                   "encoder_lstm_fwd": "encoder_cluster_kernel",
                   "encoder_lstm_bwd": "encoder_bwd_cluster_kernel"}
-CLI_TRAIN_COUNTED = (
-    "import json, runpy\n"
-    "from tacotron2_tpu_torch.kernels import encoder_lstm, train_scan\n"
-    "runpy.run_module('tacotron2_tpu_torch.train', run_name='__main__', "
-    "alter_sys=True)\n"
-    "print('LAUNCHES ' + json.dumps({\n"
-    "    'encoder_lstm_fwd': encoder_lstm.bilstm_forward.launches,\n"
-    "    'encoder_lstm_bwd': encoder_lstm.bilstm_backward.launches,\n"
-    "    'train_scan_fwd': train_scan.forward_residuals.launches,\n"
-    "    'train_scan_bwd': train_scan.backward_chain.launches}))\n")
+CLI_TRAIN_COUNTED = _rows_1_4_counted("tacotron2_tpu_torch.train")
 
 
 def _free_port() -> int:
@@ -3404,6 +3724,71 @@ def _dp_steps(cfg, dev, seed, mesh, root, synced):
                 kernels=names, losses=[float(m.loss) for m in metrics])
 
 
+def _mp_steps(cfg, dev, seed, root, gather=True):
+    """The model-parallel steps on all ranks: a ``(ranks / 2, 2)`` mesh
+    (``(1, 2)`` on the one card: both ranks take the whole batch, each
+    holds half of every sharded leaf's moments), bench.py's batch, no
+    dropout, DP_STEPS steps then DP_TIMED_STEPS timed ones, the parts'
+    all-gather timed on the host (synchronised around it). After DP_STEPS
+    each rank saves its state as it holds it (whole parameters, its parts
+    of the moments) and checks that its whole parameters and statistics
+    equal rank 0's. With ``gather`` False the all-gather is skipped (each
+    rank updates its parts alone) for DP_STEPS steps: the negative
+    control."""
+    from tacotron2_tpu_torch.parallel import (ShardPlan, create_mesh,
+                                              make_train_step,
+                                              replicate_state, shard_batch,
+                                              shard_plan, shard_state)
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    mesh = create_mesh((world // 2, 2))
+    B, T_in, T_out = (TRAIN_SHAPE[k] for k in ("B", "T_in", "T_out"))
+    state = replicate_state(tstate.create_train_state(
+        cfg, generator=torch.Generator().manual_seed(seed), device=dev), mesh)
+    plan = shard_plan(state.model, mesh)
+    state = shard_state(state, plan)
+    local = shard_batch(tstate.make_batch(cfg, B, T_in, T_out, seed=seed,
+                                          device=dev), mesh)
+    plain_gather = ShardPlan.gather_parts
+    gather_s = []
+
+    def timed_gather(self, wholes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_gather(self, wholes)
+        torch.cuda.synchronize()
+        gather_s.append(time.perf_counter() - t0)
+
+    ShardPlan.gather_parts = (timed_gather if gather
+                              else lambda self, wholes: None)
+    try:
+        step = make_train_step(cfg, mesh)
+        metrics, step_s = [], []
+        for i in range(DP_STEPS + (DP_TIMED_STEPS if gather else 0)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, local, None)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            metrics.append(m)
+            if i == DP_STEPS - 1:
+                same = _same_as_rank0(
+                    [p.detach() for p in state.model.parameters()]
+                    + list(state.stats.values()), mesh.group)
+                name = "gathered" if gather else "skipped"
+                torch.save(_dp_snapshot(state, metrics),
+                           root / f"mp_{name}_{mesh.rank}.pt")
+    finally:
+        ShardPlan.gather_parts = plain_gather
+    whole = sum(p.numel() for n, p in state.model.named_parameters()
+                if n in plan.dims)
+    held = sum(state.exp_avg[n].numel() for n in plan.dims)
+    return dict(shape=[mesh.dp, mesh.mp], step_ms=[t * 1e3 for t in step_s],
+                gather_ms=[t * 1e3 for t in gather_s], same=same,
+                moment_share=held / whole,
+                losses=[float(m.loss) for m in metrics])
+
+
 def _trace_kernels(path):
     """The kernel names in a ``profile_trace`` trace file."""
     with open(path) as f:
@@ -3486,8 +3871,9 @@ def _dp_fit(dev, seed, mesh, root):
 
 def dp_worker(rank, world, port, root, backend, seed):
     """One rank of the data-parallel phase on its card (``_dp_card``):
-    the step synced and unsynced, then ``Trainer.fit``. Writes its report
-    to ``root/dp_rank<rank>.json``."""
+    the step synced and unsynced, the model-parallel step (and, on two
+    ranks, the same without its all-gather), then ``Trainer.fit``. Writes
+    its report to ``root/dp_rank<rank>.json``."""
     import torch.distributed as dist
     from tacotron2_tpu_torch.parallel import create_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3503,9 +3889,16 @@ def dp_worker(rank, world, port, root, backend, seed):
     synced = _dp_steps(cfg, dev, seed, mesh, root, synced=True)
     step_counts = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
     unsynced = _dp_steps(cfg, dev, seed, mesh, root, synced=False)
+    for fn in TRAIN_KERNELS.values():
+        fn.launches = 0
+    mp = _mp_steps(cfg, dev, seed, root)
+    mp_counts = {k: fn.launches for k, fn in TRAIN_KERNELS.items()}
+    mp_skipped = (_mp_steps(cfg, dev, seed, root, gather=False)
+                  if world == 2 else None)
     fit = _dp_fit(dev, seed, mesh, root)
     report = dict(rank=rank, backend=dist.get_backend(), synced=synced,
-                  unsynced=unsynced, step_launches=step_counts,
+                  unsynced=unsynced, mp=mp, mp_launches=mp_counts,
+                  mp_skipped=mp_skipped, step_launches=step_counts,
                   step_count=DP_STEPS + DP_TIMED_STEPS + 2, fit=fit,
                   plain=sum(f.calls for f in PLAIN_VERSIONS) - plain0,
                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -3544,6 +3937,113 @@ def _dp_beyond(worst):
     return {g: (n, v) for g, (n, v) in worst.items() if v > DP_REL[g]}
 
 
+def _rel_gap(got, want):
+    """(name, share): the largest |got - want| over the tensors that both
+    snapshots hold, as a share of that tensor's largest |want|; (None, 0.0)
+    when every one is equal bit for bit."""
+    worst = (None, 0.0)
+    for k in want:
+        if k in got and not torch.equal(got[k], want[k]):
+            share = float((got[k] - want[k]).abs().max()
+                          / want[k].abs().max().clamp(min=1e-30))
+            if worst[0] is None or share > worst[1]:
+                worst = (k, share)
+    return worst
+
+
+def _mp_whole(snaps, mp):
+    """One whole snapshot from the snapshots of the ranks of dp index 0
+    (each holding part m of every sharded first moment)."""
+    from tacotron2_tpu_torch.parallel import shard_dim
+    whole = dict(snaps[0])
+    for k, v in snaps[0].items():
+        kind, _, name = k.partition("/")
+        dim = shard_dim(name, snaps[0][f"param/{name}"].shape, mp) \
+            if kind == "exp_avg" else None
+        if dim is not None:
+            whole[k] = torch.cat([s[k] for s in snaps[:mp]], dim=dim)
+    return whole
+
+
+def _mp_compare(cfg, card, root, reports, ref, spread):
+    """The model-parallel step against one process's: on one card (1, 2),
+    bit for bit when two runs of one process are (``spread``), else within
+    MP_SPREAD_X times their largest gap, each rank's first moments its
+    share of the process's, and the same step without its all-gather
+    rejected; over four cards (2, 2), rows split, within DP_REL. Every
+    rank's whole parameters equal rank 0's, and a rank holds 1/2 of each
+    sharded leaf's moment elements. Returns the numbers for the record."""
+    from tacotron2_tpu_torch.parallel import ShardPlan, shard_dim
+    ranks = len(reports)
+    dp, mp = reports[0]["mp"]["shape"]
+    snaps = [torch.load(root / f"mp_gathered_{r}.pt") for r in range(ranks)]
+    limit = MP_SPREAD_X * spread[1]
+    for rep in reports:
+        if not rep["mp"]["same"] or rep["mp"]["moment_share"] != 1 / mp:
+            fail(f"rank {rep['rank']} of the ({dp}, {mp}) step: whole "
+                 f"parameters equal rank 0's {rep['mp']['same']}, moment "
+                 f"share {rep['mp']['moment_share']}")
+
+    def as_rank(snap_ref, r):
+        """``snap_ref`` as rank r holds it: part r % mp of each sharded
+        first moment."""
+        out = dict(snap_ref)
+        for k, v in snap_ref.items():
+            kind, _, name = k.partition("/")
+            dim = shard_dim(name, ref[f"param/{name}"].shape, mp) \
+                if kind == "exp_avg" else None
+            if dim is not None:
+                out[k] = ShardPlan({name: dim}, r % mp, mp, None).part(name, v)
+        return out
+
+    if dp == 1:
+        gaps = [_rel_gap(snaps[r], as_rank(ref, r)) for r in range(ranks)]
+        worst = max(gaps, key=lambda g: g[1])
+        skipped = _rel_gap(torch.load(root / "mp_skipped_0.pt"),
+                           as_rank(ref, 0))
+        verdict = (f"each rank against one process: worst {worst} (limit "
+                   f"{'bit for bit' if spread[0] is None else limit}); "
+                   f"without the all-gather {skipped}")
+        if any(g[0] is not None and g[1] > limit for g in gaps):
+            fail(f"the (1, {mp}) step differs from one process: {gaps} "
+                 f"(two runs of one process: {spread})")
+        if skipped[0] is None or skipped[1] <= limit:
+            fail(f"the comparison passes the (1, {mp}) step without its "
+                 f"all-gather: {skipped}")
+    else:
+        worst = _dp_gaps(_mp_whole(snaps, mp), ref, cfg.learning_rate)
+        verdict = "against one process " + ", ".join(
+            f"{g} {v:.3e} ({n})" for g, (n, v) in sorted(worst.items()))
+        if _dp_beyond(worst):
+            fail(f"the ({dp}, {mp}) step is beyond DP_REL: "
+                 f"{_dp_beyond(worst)}")
+    n = DP_STEPS + DP_TIMED_STEPS
+    step_ms = [float(np.median(rep["mp"]["step_ms"][DP_STEPS:]))
+               for rep in reports]
+    gather_ms = [float(np.median(rep["mp"]["gather_ms"][DP_STEPS:n]))
+                 for rep in reports]
+    r2 = lambda xs: [round(x, 2) for x in xs]
+    # both fp32 Adam moments: one process's, and a rank's (1/mp of each
+    # sharded leaf's)
+    params = {k[6:]: v.shape for k, v in ref.items() if k.startswith("param/")}
+    whole_mb = sum(8 * math.prod(sh) for sh in params.values()) / 1e6
+    rank_mb = whole_mb - sum(
+        8 * math.prod(sh) * (1 - 1 / mp) for n, sh in params.items()
+        if shard_dim(n, sh, mp) is not None) / 1e6
+    print(f"model parallel [{card}] ({dp}, {mp}) mesh over {ranks} ranks, "
+          f"B={TRAIN_SHAPE['B']} global (bf16, no dropout), {DP_STEPS} "
+          f"steps; two runs of one process: {spread}; {verdict}; whole "
+          f"parameters equal on every rank; each rank holds 1/{mp} of the "
+          f"sharded moments: Adam moments {rank_mb:.1f} MB a rank against "
+          f"{whole_mb:.1f} MB in one process; step (host clock, median of "
+          f"{DP_TIMED_STEPS}) "
+          f"by rank {r2(step_ms)} ms, the all-gather {r2(gather_ms)} ms, "
+          f"{max(gather_ms) / max(step_ms):.3f} of the step; launches a "
+          f"rank over {n} steps {reports[0]['mp_launches']}")
+    return dict(shape=[dp, mp], step_ms=step_ms, gather_ms=gather_ms,
+                spread=spread, worst=worst)
+
+
 def dp_phase(cfg, dev, card, seed, ranks=DP_RANKS):
     """Data parallelism: ``ranks`` processes of
     ``parallel.make_train_step`` (on the one card, or one a card with
@@ -3579,7 +4079,16 @@ def dp_phase(cfg, dev, card, seed, ranks=DP_RANKS):
             metrics.append(m)
             if len(metrics) == DP_STEPS:
                 ref = _dp_snapshot(state, metrics)
-        del state, batch, metrics
+        # a second run of the same steps: how far one process is from
+        # itself, which sets the limit of the model-parallel comparison
+        state = tstate.create_train_state(
+            cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+        again = []
+        for _ in range(DP_STEPS):
+            state, m, _ = tstate.train_step(state, batch, cfg)
+            again.append(m)
+        spread = _rel_gap(_dp_snapshot(state, again), ref)
+        del state, batch, metrics, again
         torch.cuda.empty_cache()
         subprocess.run(["sh", str(REPO / "native" / "build.sh")], check=True,
                        capture_output=True, timeout=300)
@@ -3665,6 +4174,8 @@ def dp_phase(cfg, dev, card, seed, ranks=DP_RANKS):
                 fail(f"rank {r}: kernels {missing} did not launch, or a "
                      f"plain version ran ({rep['plain']} calls)")
 
+        mp_report = _mp_compare(cfg, card, root, reports, ref, spread)
+
         # Trainer.fit on the ranks
         for rep in reports:
             fit, r = rep["fit"], rep["rank"]
@@ -3727,8 +4238,9 @@ def dp_phase(cfg, dev, card, seed, ranks=DP_RANKS):
                       if l.startswith("Process group:")]
         ckpts = sorted(p.name for p in out_dir.glob("checkpoint_*.pt"))
         if (group_line != ["Process group: backend nccl, data parallel over "
-                           "1 rank(s)"] or not ckpts
-                or not all(launches[k] for k in DP_ROW_KERNELS)):
+                           "1 rank(s), mesh (dp, mp) = (1, 1)"] or not ckpts
+                or not all(launches[k] for k in DP_ROW_KERNELS)
+                or launches["plain"]):
             fail(f"the train CLI under torchrun: {group_line}, checkpoints "
                  f"{ckpts}, launches {launches}")
         print(f"data parallel [{card}] python -m tacotron2_tpu_torch.train "
@@ -3736,7 +4248,7 @@ def dp_phase(cfg, dev, card, seed, ranks=DP_RANKS):
               f"checkpoints {ckpts}; launches {launches}; {cli_s:.1f} s")
         print(f"data parallel [{card}] phase wall "
               f"{time.perf_counter() - t_phase:.1f} s")
-        return rep0["step_launches"]
+        return rep0["step_launches"], rep0["mp_launches"], mp_report
     finally:
         shutil.rmtree(root, ignore_errors=True)
         if not had_lib:
@@ -3775,11 +4287,12 @@ def main() -> int:
     scan_fwd, scan_bwd = scan_phase(model, cfg, dev, card)
     enc_bwd = encoder_train_phase(model, dev, card, enc)
     del model
-    train_counts = train_phase(cfg, dev, card, seed)
+    train_counts, train_ms = train_phase(cfg, dev, card, seed)
     trainer_counts = trainer_phase(dev, card, seed)
     enc["training_step_with_plain_version"] = encoder_swap_phase(
         cfg, dev, card, seed)
     step_check_phase(cfg, dev, card, seed)
+    bench_counts, script_counts = bench_phase(cfg, dev, card, train_ms)
     BUILD.mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="vocoders_", dir=BUILD))
     try:
@@ -3789,9 +4302,11 @@ def main() -> int:
         cli_counts, http_counts = entry_points_phase(
             cfg, dev, card, seed, root, wg_path, hg_path)
         audio_counts = audio_batch_phase(dev, card, seed, filelist)
+        cache_counts = cache_mels_phase(cfg, dev, card, filelist, root)
+        demo_counts = demo_phase(cfg, dev, card, seed, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    dp_counts = dp_phase(cfg, dev, card, seed)
+    dp_counts, mp_counts, _ = dp_phase(cfg, dev, card, seed)
 
     enc["launches"] = counts["encoder_lstm_fwd"]
     enc["launches_training"] = train_counts["encoder_lstm_fwd"]
@@ -3817,6 +4332,13 @@ def main() -> int:
     enc["launches_infer_cli"] = cli_counts["encoder_lstm_fwd"]
     step["launches_infer_cli"] = cli_counts["decoder_step_chunk"]
     int8["launches_infer_cli"] = cli_counts["int8_matmul"]
+    for k in (scan_fwd, scan_bwd, enc, enc_bwd):
+        k["launches_bench"] = bench_counts[k["name"]]
+        k["launches_model_parallel"] = mp_counts[k["name"]]
+    for k in (scan_fwd, scan_bwd, enc, enc_bwd, dec, step, int8):
+        k["launches_bench_scripts"] = script_counts[k["name"]]
+    mel["launches_cache_mels"] = cache_counts
+    enc["launches_inference_demo"] = demo_counts
     print(json.dumps({"kernels": [scan_fwd, scan_bwd, enc, enc_bwd, dec,
                                   step, int8, mel]}))
     print(json.dumps({"ok": True, "device": {
@@ -3840,9 +4362,10 @@ def dp_cards_main(n: int) -> int:
     built = _build.build_all()
     print(f"built {sorted(built) or 'nothing (cached)'} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
-    counts = dp_phase(create_config(), torch.device("cuda", 0), card, 1234,
-                      ranks=n)
-    print(json.dumps({"launches_data_parallel": counts}))
+    counts, mp_counts, _ = dp_phase(create_config(), torch.device("cuda", 0),
+                                    card, 1234, ranks=n)
+    print(json.dumps({"launches_data_parallel": counts,
+                      "launches_model_parallel": mp_counts}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

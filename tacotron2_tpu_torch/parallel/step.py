@@ -1,16 +1,23 @@
-"""Data-parallel train and eval steps (the JAX package's
+"""Data- and model-parallel train and eval steps (the JAX package's
 ``parallel/step.py``).
 
-JAX jits one step with the batch sharded on ``dp`` and the state
-replicated; GSPMD then computes the batch statistics over the global batch
-and derives the gradient psum. The port does both by hand over the mesh's
-process group: each rank runs the forward and backward on its rows
-(``mesh.local_rows``) with the batchnorm statistics all-reduced
-(``ops/layers.batchnorm_train``), then one all-reduce averages the
-flattened gradients together with the loss breakdown, and every rank
-applies the same ``guarded_update`` to the same numbers. The model is not
-wrapped in ``DistributedDataParallel``: the step takes its gradients with
-``torch.autograd.grad`` and never fills ``.grad``, where DDP's reducer
+JAX jits one step with the batch sharded on ``dp`` and the state sharded
+by its shape rules (``parallel/sharding.py``); GSPMD then computes the
+batch statistics over the global batch and derives the gradient psum and
+the gathers of sharded weights. The port does this by hand over the mesh's
+process groups: each rank runs the forward and backward on its rows
+(``mesh.local_rows``) with whole weights and the batchnorm statistics
+all-reduced over its dp group (``ops/layers.batchnorm_train``), then one
+all-reduce over the dp group averages the flattened gradients together
+with the loss breakdown, and every rank applies ``guarded_update`` to the
+same numbers. At mp > 1 the ranks of one dp index hold the same rows and
+draw the same dropout, so they compute equal gradients, and after the dp
+all-reduce every rank holds the global mean: no reduce-scatter over mp is
+needed. ``guarded_update`` then updates each sharded parameter on the
+rank's part, with its part of the Adam moments, and all-gathers the parts
+over the mp group into the whole weights the kernels read. The model is
+not wrapped in ``DistributedDataParallel``: the step takes its gradients
+with ``torch.autograd.grad`` and never fills ``.grad``, where DDP's reducer
 hooks in.
 """
 
@@ -58,14 +65,17 @@ def make_train_step(cfg: Tacotron2Config, mesh: Mesh) -> Callable:
     of ``cfg.grad_accum_steps`` micro-batches (None: no dropout). With more
     than one micro-batch the step is ``training/accumulate.py``'s, with the
     all-reduce once after the micro loop. With one process and one
-    micro-batch it computes what ``train_step`` does, bit for bit."""
+    micro-batch it computes what ``train_step`` does, bit for bit. The
+    state is sharded as ``parallel.sharding.shard_state`` leaves it (or
+    whole at mp = 1)."""
     n_micro = cfg.grad_accum_steps
 
     def step(state: TrainState, local_batch: Batch, generators: Generators
              ) -> Tuple[TrainState, StepMetrics]:
         grads, new_stats, parts = micro_batch_grads(
-            state, local_batch, cfg, n_micro, generators, group=mesh.group)
-        grads, parts = all_reduce_mean(grads, list(parts), mesh.group)
+            state, local_batch, cfg, n_micro, generators,
+            group=mesh.dp_group)
+        grads, parts = all_reduce_mean(grads, list(parts), mesh.dp_group)
         new_state, grad_norm, applied = guarded_update(
             state, grads, new_stats, parts[0], cfg)
         return new_state, StepMetrics(*parts, grad_norm, applied)
@@ -76,13 +86,13 @@ def make_train_step(cfg: Tacotron2Config, mesh: Mesh) -> Callable:
 def make_eval_step(cfg: Tacotron2Config, mesh: Mesh) -> Callable:
     """``eval(state, local_batch, generator) -> (LossBreakdown, output)``:
     each rank evaluates its rows; the ``row_valid``-weighted losses are
-    combined across ranks by their weights, so the breakdown equals
+    combined across the dp group by their weights, so the breakdown equals
     ``eval_step`` on the whole batch. The output is the rank's own rows."""
 
     def step(state: TrainState, local_batch: Batch,
              generator: Optional[torch.Generator] = None):
         breakdown, output = eval_step(state, local_batch, cfg, generator)
-        if mesh.group is None:
+        if mesh.dp_group is None:
             return breakdown, output
         rows = local_batch.row_valid
         weight = (rows.sum() if rows is not None else torch.tensor(
@@ -91,7 +101,7 @@ def make_eval_step(cfg: Tacotron2Config, mesh: Mesh) -> Callable:
         # division, add over ranks, divide by the global weight
         local = torch.stack([*(p * torch.clamp(weight, min=1.0)
                                for p in breakdown), weight])
-        dist.all_reduce(local, group=mesh.group)
+        dist.all_reduce(local, group=mesh.dp_group)
         parts = local[:-1] / torch.clamp(local[-1], min=1.0)
         return LossBreakdown(*parts), output
 

@@ -12,6 +12,11 @@ torchrun it trains data-parallel, one rank a card (NCCL; gloo with
 ``--device cpu``), ``batch_size`` being the global batch:
 
     torchrun --nproc_per_node=N -m tacotron2_tpu_torch.train -o outdir ...
+
+``--hparams mesh_shape=dp+mp`` (the config's tuple syntax: ``,`` separates
+the pairs) lays the N = dp * mp ranks on a ``(dp, mp)`` mesh: the batch
+split over dp, the Adam moments of the wide weights sharded over mp
+(``parallel/``).
 """
 
 from __future__ import annotations

@@ -27,6 +27,12 @@ vocoder's config as a dict under ``config`` and its state_dict under
 ``learning_rate``) and loads one back (its
 ``restored(ckpt)``). A Tacotron 2 checkpoint has no ``kind``.
 
+A model-parallel state (mp > 1, ``parallel/sharding.py``) holds only its
+part of some Adam moments: ``save`` gathers the whole moments first, a
+collective, so every rank calls it; ``restore`` cuts a whole checkpoint to
+the state's parts. A checkpoint thus has one format whatever the mesh, as
+the JAX package's does, and restores on any other.
+
 ``save`` copies every tensor to host memory before it returns:
 ``training/state.py:guarded_update`` updates the parameters in place, so a
 reference handed to the writer thread would be overwritten by the next
@@ -44,6 +50,7 @@ from typing import Dict, Iterable, List, Optional
 import torch
 
 from tacotron2_tpu_torch.models import tacotron2 as model_lib
+from tacotron2_tpu_torch.parallel.sharding import gather_state, shard_state
 from tacotron2_tpu_torch.training.state import TrainState
 
 _CKPT_RE = re.compile(r"^checkpoint_(\d+)\.pt$")
@@ -110,7 +117,10 @@ class Checkpointer:
 
     def save(self, state, wait: bool = False) -> Optional[str]:
         """Snapshot to host memory now, write in the background. Returns the
-        path (on process 0; None elsewhere)."""
+        path (on process 0; None elsewhere). Every rank calls it for a
+        sharded state (the moments are gathered first)."""
+        if isinstance(state, TrainState):
+            state = gather_state(state)
         if not self.writes:
             return None
         self.wait()  # one write in flight at a time
@@ -174,8 +184,9 @@ class Checkpointer:
         """Full resume into ``state``'s model (loaded in place, strictly)
         on its device: parameters, batchnorm statistics, Adam moments and
         count, step and learning rate (reference load_checkpoint,
-        train.py:99-109). Returns the restored state. A vocoder trainer's
-        state loads its own (``restored``)."""
+        train.py:99-109), the moments cut to ``state``'s shard plan if it
+        has one. Returns the restored state. A vocoder trainer's state
+        loads its own (``restored``)."""
         path = path or self.latest()
         if path is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -197,11 +208,12 @@ class Checkpointer:
         moments = {key: {n: opt[key][n].to(dev, torch.float32)
                          for n in names} for key in ("exp_avg", "exp_avg_sq")}
         scalar = lambda v, dt: torch.tensor(v, dtype=dt, device=dev)
-        return TrainState(
+        whole = TrainState(
             scalar(ckpt["iteration"], torch.int32), model,
             model_lib.bn_stats(model), moments["exp_avg"],
             moments["exp_avg_sq"], opt["adam_count"].to(dev, torch.int32),
             scalar(ckpt["learning_rate"], torch.float32))
+        return shard_state(whole, state.shard)
 
 
 def load(path: str) -> dict:

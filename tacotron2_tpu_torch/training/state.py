@@ -13,7 +13,7 @@ the batchnorm running statistics and the Adam moments are values in the
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,6 +21,9 @@ import torch
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.models import tacotron2 as model_lib
 from tacotron2_tpu_torch.training.loss import LossBreakdown, tacotron2_loss
+
+if TYPE_CHECKING:
+    from tacotron2_tpu_torch.parallel.sharding import ShardPlan
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -46,6 +49,9 @@ class TrainState(NamedTuple):
     exp_avg_sq: Tensors          # fp32 Adam second moments
     adam_count: torch.Tensor     # () int32, advances on applied steps only
     learning_rate: torch.Tensor  # () fp32
+    # parallel.sharding.ShardPlan at mp > 1: the moments of the parameters
+    # it names hold this rank's part only; None: every moment is whole
+    shard: Optional["ShardPlan"] = None
 
 
 class StepMetrics(NamedTuple):
@@ -101,7 +107,16 @@ def guarded_update(state: TrainState, grads: Tensors, new_stats: Tensors,
     When the loss or the gradient norm is not finite, parameters, moments,
     the Adam count and the batchnorm statistics keep their old values and
     only ``step`` advances; nothing is read back to the host. Returns
-    (new state, grad_norm of the unclipped gradient, applied 1.0/0.0)."""
+    (new state, grad_norm of the unclipped gradient, applied 1.0/0.0).
+
+    With a shard plan (``state.shard``, mp > 1) the norm, the clip and the
+    finiteness test still come from the whole gradient, which every rank
+    holds; each sharded parameter is updated on this rank's part only,
+    with its part of the moments, and the other parts are gathered from
+    the mp group's ranks after the loop. Each element's arithmetic is the
+    one it has without the plan."""
+    plan = state.shard
+    part = plan.part if plan is not None else (lambda name, t: t)
     g_norm = global_norm(grads)
     finite = torch.isfinite(loss) & torch.isfinite(g_norm)
     trigger = g_norm < cfg.grad_clip_thresh
@@ -110,10 +125,11 @@ def guarded_update(state: TrainState, grads: Tensors, new_stats: Tensors,
     one = torch.ones((), device=c.device)
     corr1 = 1 - (one * ADAM_B1) ** c
     corr2 = 1 - (one * ADAM_B2) ** c
-    mu_new, nu_new = {}, {}
+    mu_new, nu_new, sharded = {}, {}, []
     with torch.no_grad():
-        for name, p in state.model.named_parameters():
-            g = grads[name].float()
+        for name, whole in state.model.named_parameters():
+            p = part(name, whole)
+            g = part(name, grads[name]).float()
             g = torch.where(trigger, g, (g / g_norm) * cfg.grad_clip_thresh)
             g = g + cfg.weight_decay * p
             mu = (1 - ADAM_B1) * g + ADAM_B1 * state.exp_avg[name]
@@ -123,11 +139,15 @@ def guarded_update(state: TrainState, grads: Tensors, new_stats: Tensors,
             p.copy_(torch.where(finite, new_p, p))
             mu_new[name] = torch.where(finite, mu, state.exp_avg[name])
             nu_new[name] = torch.where(finite, nu, state.exp_avg_sq[name])
+            if p is not whole:
+                sharded.append((name, whole))
+        if plan is not None:
+            plan.gather_parts(sharded)
         stats = {k: torch.where(finite, new_stats[k], v)
                  for k, v in state.stats.items()}
     new_state = TrainState(state.step + 1, state.model, stats, mu_new, nu_new,
                            torch.where(finite, count, state.adam_count),
-                           state.learning_rate)
+                           state.learning_rate, plan)
     return new_state, g_norm, finite.float()
 
 

@@ -11,18 +11,22 @@ written in the background.
 
 Under torchrun (or any initialised process group) each rank is a process
 with its own card: the state is replicated from rank 0, every rank iterates
-the same global batches and assembles its own rows of each, and the step
-syncs the batchnorm statistics and averages the gradients
-(``parallel/``). Rank 0 alone prints, logs and writes checkpoints.
+the same global batches and assembles its dp index's rows of each, and the
+step syncs the batchnorm statistics and averages the gradients over the dp
+group (``parallel/``). ``config.mesh_shape`` (dp, mp) with mp > 1 also
+shards the Adam moments over mp (``parallel/sharding.py``); the mp ranks of
+one dp index hold the same rows and draw the same dropout. Rank 0 alone
+prints, logs and writes checkpoints (every rank takes part in the save of
+a sharded state).
 ``config.grad_accum_steps > 1`` splits each step into micro-batches
 (``training/accumulate.py``).
 
 Dropout is drawn from generators on the device seeded from
 ``(config.seed, step)`` (with the micro-batch index when there are several,
-and the rank when there are several), so a resumed run draws what an
+and the dp index when there are several), so a resumed run draws what an
 uninterrupted one would; validation's prenet dropout
 (``eval_prenet_dropout``) from ``(config.seed, step, batch index)`` and
-the rank.
+the dp index.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from tacotron2_tpu_torch.models import tacotron2 as model_lib
 from tacotron2_tpu_torch.parallel import (create_mesh, initialize_distributed,
                                           local_device, local_rows,
                                           make_eval_step, make_train_step,
-                                          replicate_state)
+                                          replicate_state, shard_plan,
+                                          shard_state)
 from tacotron2_tpu_torch.training.checkpoint import Checkpointer, warm_start
 from tacotron2_tpu_torch.training.logging import MetricLogger
 from tacotron2_tpu_torch.training.state import (Batch, StepMetrics,
@@ -122,12 +127,15 @@ class Trainer:
                 print(f"Warm-started from {warm_start_path} "
                       f"(ignoring {config.ignore_layers})")
         replicate_state(self.state, self.mesh)
+        self.state = shard_state(self.state,
+                                 shard_plan(self.state.model, self.mesh))
         self.train_step_fn = make_train_step(config, self.mesh)
         self.eval_step_fn = make_eval_step(config, self.mesh)
         if self.is_main and self.mesh.group is not None:
             print(f"Process group: backend "
                   f"{torch.distributed.get_backend()}, data parallel over "
-                  f"{self.mesh.dp} rank(s)")
+                  f"{self.mesh.dp} rank(s), mesh (dp, mp) = "
+                  f"({self.mesh.dp}, {self.mesh.mp})")
         self._lr = float(self.state.learning_rate)
         self.last_fit: Optional[FitTiming] = None
         # ("train" | "val", T_in, T_out) of every batch run, for the record
@@ -138,9 +146,11 @@ class Trainer:
     def step_generators(self, step: int) -> List[torch.Generator]:
         """The dropout generators of training step ``step`` (0-based), one
         a micro-batch: seeded from (seed, step), then the micro-batch index
-        when there are several, then the rank when there are several."""
+        when there are several, then the dp index when there are several
+        (the mp ranks of one dp index draw the same masks, or their
+        gradients would differ)."""
         n_micro = self.config.grad_accum_steps
-        rank = (self.mesh.rank,) if self.mesh.dp > 1 else ()
+        rank = (self.mesh.dp_index,) if self.mesh.dp > 1 else ()
         base = (self.config.seed, _TRAIN, step)
         if n_micro == 1:
             return [derived_generator(self.device, *base, *rank)]
@@ -149,8 +159,8 @@ class Trainer:
 
     def _rows(self, pipeline: DataPipeline, n_micro: int
               ) -> Optional[np.ndarray]:
-        """This rank's rows of the pipeline's global batches; None with
-        one rank (every row)."""
+        """This rank's rows of the pipeline's global batches (its dp
+        index's); None with one dp index (every row)."""
         if self.mesh.dp == 1:
             return None
         if pipeline.process_count != 1:
@@ -274,7 +284,7 @@ class Trainer:
         cfg = self.config
         total, weight = 0.0, 0.0
         last = None
-        rank = (self.mesh.rank,) if self.mesh.dp > 1 else ()
+        rank = (self.mesh.dp_index,) if self.mesh.dp > 1 else ()
         rows = self._rows(val_pipeline, 1)
         for i, batch in enumerate(val_pipeline.epoch(0, rows=rows)):
             batch = Batch(*(None if t is None else t.to(self.device)
@@ -289,8 +299,8 @@ class Trainer:
             valid = (batch.row_valid.sum() if batch.row_valid is not None
                      else torch.tensor(float(batch.text.shape[0]),
                                        device=self.device))
-            if self.mesh.group is not None:
-                torch.distributed.all_reduce(valid, group=self.mesh.group)
+            if self.mesh.dp_group is not None:
+                torch.distributed.all_reduce(valid, group=self.mesh.dp_group)
             n_valid = float(valid)
             total += float(breakdown.total) * n_valid
             weight += n_valid
