@@ -42,6 +42,7 @@ from tacotron2_tpu_torch.kernels.lstm_layout import (MMA_UNITS, from_blocks,
                                                      pad_core_weights,
                                                      padded_width, to_blocks,
                                                      to_mma_tiles)
+from tacotron2_tpu_torch.utils.profiling import span
 
 NEG = -1e30       # additive attention mask (the TPU kernels' -inf stand-in)
 GATE_MASK = 1e3   # gate value of finished rows (reference model.py:495)
@@ -472,16 +473,21 @@ def _autoregressive(fp, inputs, memory, cfg, max_steps, chunk_steps,
     t_max = max_steps or cfg.max_decoder_steps
     carry = init_stream_carry(memory, cfg)
     mels, gates, aligns = [], [], []
-    while carry.t < t_max and not bool(carry.finished.all()):
+    while carry.t < t_max:
         cs = min(chunk_steps, t_max - carry.t)
-        keep = None
-        if generator is not None:
-            shape = (cs, B, cfg.prenet_dim)
-            keep = tuple(torch.rand(shape, generator=generator,
-                                    device=memory.device) < 0.5
-                         for _ in range(2))
-        carry, (mel, gate, align) = _decode_chunk(fp, carry, inputs, cfg, cs,
-                                                  keep, chunk)
+        # one span a chunk: the latch read, which waits for the chunk
+        # before, and the next chunk's launch
+        with span("decoder.chunk", cs):
+            if bool(carry.finished.all()):
+                break
+            keep = None
+            if generator is not None:
+                shape = (cs, B, cfg.prenet_dim)
+                keep = tuple(torch.rand(shape, generator=generator,
+                                        device=memory.device) < 0.5
+                             for _ in range(2))
+            carry, (mel, gate, align) = _decode_chunk(fp, carry, inputs, cfg,
+                                                      cs, keep, chunk)
         mels.append(mel)
         gates.append(gate)
         aligns.append(align)

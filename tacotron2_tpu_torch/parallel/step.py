@@ -35,6 +35,7 @@ from tacotron2_tpu_torch.training.loss import LossBreakdown
 from tacotron2_tpu_torch.training.state import (Batch, StepMetrics, Tensors,
                                                 TrainState, eval_step,
                                                 guarded_update)
+from tacotron2_tpu_torch.utils.profiling import span
 
 Generators = Optional[Sequence[Optional[torch.Generator]]]
 
@@ -67,18 +68,23 @@ def make_train_step(cfg: Tacotron2Config, mesh: Mesh) -> Callable:
     all-reduce once after the micro loop. With one process and one
     micro-batch it computes what ``train_step`` does, bit for bit. The
     state is sharded as ``parallel.sharding.shard_state`` leaves it (or
-    whole at mp = 1)."""
+    whole at mp = 1). The step runs in the span ``train.step``, its
+    gradients in ``train.grads`` and its update in ``train.update``
+    (``utils/profiling.span``)."""
     n_micro = cfg.grad_accum_steps
 
     def step(state: TrainState, local_batch: Batch, generators: Generators
              ) -> Tuple[TrainState, StepMetrics]:
-        grads, new_stats, parts = micro_batch_grads(
-            state, local_batch, cfg, n_micro, generators,
-            group=mesh.dp_group)
-        grads, parts = all_reduce_mean(grads, list(parts), mesh.dp_group)
-        new_state, grad_norm, applied = guarded_update(
-            state, grads, new_stats, parts[0], cfg)
-        return new_state, StepMetrics(*parts, grad_norm, applied)
+        with span("train.step"):
+            with span("train.grads"):
+                grads, new_stats, parts = micro_batch_grads(
+                    state, local_batch, cfg, n_micro, generators,
+                    group=mesh.dp_group)
+            grads, parts = all_reduce_mean(grads, list(parts), mesh.dp_group)
+            with span("train.update"):
+                new_state, grad_norm, applied = guarded_update(
+                    state, grads, new_stats, parts[0], cfg)
+            return new_state, StepMetrics(*parts, grad_norm, applied)
 
     return step
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Mapping, Optional, Sequence, Union
 
@@ -29,6 +30,7 @@ from tacotron2_tpu_torch.data.bucketing import mel_bucket, text_bucket
 from tacotron2_tpu_torch.kernels import decoder_batch as db
 from tacotron2_tpu_torch.models import hifigan, tacotron2, waveglow
 from tacotron2_tpu_torch.text import text_to_sequence
+from tacotron2_tpu_torch.utils.profiling import span
 
 
 def _as_model(model, config: Tacotron2Config) -> tacotron2.Tacotron2:
@@ -92,7 +94,7 @@ class BatchingSynthesizer:
         ids = np.asarray(text_to_sequence(text, self.config.text_cleaners),
                          np.int32)
         future: Future = Future()
-        self._queue.put((ids, future))
+        self._queue.put((ids, future, time.perf_counter()))
         return future
 
     def synthesize(self, texts: Sequence[str]) -> List:
@@ -106,21 +108,28 @@ class BatchingSynthesizer:
     # ---------------------------------------------------------- worker
 
     def _collect(self):
-        """Pull up to max_batch requests, waiting max_wait_ms after the
-        first one arrives."""
+        """Pull up to max_batch requests: block for the first one, then
+        wait up to max_wait_ms for each next one, afresh after every
+        arrival, so a batch stays open while requests keep coming less than
+        max_wait_ms apart. The span runs from the first request taken to
+        the batch closed, not while the worker waits on an empty queue; it
+        has no fields, since a span's name is fixed as it opens, and the
+        ``serve.batch`` span that follows it carries the batch's rows."""
         first = self._queue.get()
         if first is None:
             return None
-        items = [first]
-        while len(items) < self.max_batch:
-            try:
-                item = self._queue.get(timeout=self.max_wait_ms / 1000.0)
-            except queue.Empty:
-                break
-            if item is None:
-                self._queue.put(None)  # re-post the shutdown signal
-                break
-            items.append(item)
+        with span("serve.collect"):
+            items = [first]
+            while len(items) < self.max_batch:
+                try:
+                    item = self._queue.get(
+                        timeout=self.max_wait_ms / 1000.0)
+                except queue.Empty:
+                    break
+                if item is None:
+                    self._queue.put(None)  # re-post the shutdown signal
+                    break
+                items.append(item)
         return items
 
     def _infer(self, text: np.ndarray, lengths: np.ndarray):
@@ -136,8 +145,10 @@ class BatchingSynthesizer:
                 self.model, text, lengths, self.config, packed=self._packed,
                 packed_lstm=self._packed_lstm, max_steps=self.max_steps,
                 device=self.device)
-        return (res.mel_postnet.cpu().numpy(), res.alignments.cpu().numpy(),
-                res.mel_lengths.cpu().numpy())
+        with span("serve.to_host"):
+            return (res.mel_postnet.cpu().numpy(),
+                    res.alignments.cpu().numpy(),
+                    res.mel_lengths.cpu().numpy())
 
     def _run(self) -> None:
         buckets = self.config.text_buckets
@@ -145,23 +156,28 @@ class BatchingSynthesizer:
             items = self._collect()
             if items is None:
                 return
+            # the rows' waits in the queue, from submit to the batch
+            # closed, summed, in us
+            closed = time.perf_counter()
+            wait_us = int(sum(closed - t for _, _, t in items) * 1e6)
             try:
-                max_len = max(len(ids) for ids, _ in items)
+                max_len = max(len(ids) for ids, _, _ in items)
                 t_text = text_bucket(max_len, buckets)
                 B = self.max_batch  # fixed batch shape: padding rows
-                text = np.zeros((B, t_text), np.int32)
-                lengths = np.ones((B,), np.int32)
-                for i, (ids, _) in enumerate(items):
-                    n = min(len(ids), t_text)
-                    text[i, :n] = ids[:n]
-                    lengths[i] = n
-                mel, align, mel_lengths = self._infer(text, lengths)
-                for i, (ids, future) in enumerate(items):
-                    n = int(mel_lengths[i])
-                    future.set_result((mel[i, :n], align[i, :n, :lengths[i]],
-                                       n))
+                with span("serve.batch", len(items), wait_us):
+                    text = np.zeros((B, t_text), np.int32)
+                    lengths = np.ones((B,), np.int32)
+                    for i, (ids, _, _) in enumerate(items):
+                        n = min(len(ids), t_text)
+                        text[i, :n] = ids[:n]
+                        lengths[i] = n
+                    mel, align, mel_lengths = self._infer(text, lengths)
+                    for i, (ids, future, _) in enumerate(items):
+                        n = int(mel_lengths[i])
+                        future.set_result(
+                            (mel[i, :n], align[i, :n, :lengths[i]], n))
             except BaseException as e:  # propagate to all waiters
-                for _, future in items:
+                for _, future, _ in items:
                     if not future.done():
                         future.set_exception(e)
                 if not isinstance(e, Exception):

@@ -1,6 +1,5 @@
 """Shared utilities: profiling."""
 
-from tacotron2_tpu_torch.utils.profiling import (StepTimer, profile_trace,
-                                                 start_profiler_server)
+from tacotron2_tpu_torch.utils.profiling import profile_trace, span
 
-__all__ = ["StepTimer", "profile_trace", "start_profiler_server"]
+__all__ = ["profile_trace", "span"]

@@ -3,33 +3,47 @@
 The reference's observability is a per-iteration ``time.perf_counter``
 print (reference train.py:209,239-243). Here:
 
-- ``StepTimer``: wall-clock step timing with a warm-up skip and a
-  percentile summary;
+- ``span``: a named range at one of the program's layer boundaries (a
+  serving batch, a decoder chunk, a training step and its phases), which
+  a running ``torch.profiler`` records beside the card's operations and
+  which costs one flag read when none runs;
 - ``profile_trace``: a context manager around ``torch.profiler`` that
   writes a trace (host activity, and the card's kernels when there is one)
-  which TensorBoard's profile plugin and Perfetto read;
-- ``start_profiler_server``: the counterpart of JAX's live capture
-  endpoint. PyTorch has no such server, so this is a small HTTP server
-  whose request captures a window of the requested length with
-  ``profile_trace`` and answers with the trace's path.
+  which TensorBoard's profile plugin and Perfetto read.
 """
 
 from __future__ import annotations
 
 import contextlib
 import glob
-import json
 import os
-import threading
-import time
-import urllib.parse
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Iterator, List, Optional
+from typing import ContextManager, Iterator, Optional
 
-import numpy as np
 import torch
+import torch.autograd.profiler as autograd_profiler
 from torch._C._profiler import _ExperimentalConfig
 from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+SPAN_PREFIX = "tt2:"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, *fields) -> ContextManager:
+    """A ``torch.profiler.record_function`` range named
+    ``tt2:<name>:<field>:...`` while a profiler runs, else a shared null
+    context: a bare ``record_function`` does its work with no profiler
+    too. The gate is ``torch.autograd.profiler._is_profiler_enabled``, a
+    module flag the profiler sets for the whole process, so it holds on
+    every thread of a profiler started with ``profile_all_threads``;
+    ``torch._C._autograd._profiler_enabled()`` reads the calling thread's
+    state and is False on such a thread. The fields are joined only while
+    a profiler runs, so callers pass numbers, not strings built for the
+    name. Spans go at batch, chunk, step and phase boundaries, never
+    inside a per-step or per-leaf loop."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(
+        ":".join([SPAN_PREFIX + name, *(str(f) for f in fields)]))
 
 
 @contextlib.contextmanager
@@ -56,77 +70,3 @@ def latest_trace(log_dir: str) -> Optional[str]:
     """The newest trace file ``profile_trace`` wrote under ``log_dir``."""
     paths = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
     return max(paths, key=os.path.getmtime) if paths else None
-
-
-def start_profiler_server(port: int = 9999, log_dir: str = "profiles",
-                          host: str = "127.0.0.1") -> ThreadingHTTPServer:
-    """Serve captures on ``host:port`` from a daemon thread:
-    ``GET /capture?ms=N`` profiles the next N milliseconds of this process
-    (every thread's operators, the card's kernels) into ``log_dir`` and
-    answers ``{"trace": path}``; one capture at a time (409 while one
-    runs). Returns the server: ``shutdown()`` stops it."""
-    busy = threading.Lock()
-
-    class Handler(BaseHTTPRequestHandler):
-        def do_GET(self):
-            url = urllib.parse.urlparse(self.path)
-            if url.path != "/capture":
-                return self._reply(404, {"error": "GET /capture?ms=N"})
-            try:
-                ms = float(urllib.parse.parse_qs(url.query)
-                           .get("ms", ["1000"])[0])
-            except ValueError:
-                return self._reply(400, {"error": "ms must be a number"})
-            if not busy.acquire(blocking=False):
-                return self._reply(409, {"error": "a capture is running"})
-            try:
-                with profile_trace(log_dir):
-                    time.sleep(ms / 1e3)
-                self._reply(200, {"trace": latest_trace(log_dir)})
-            finally:
-                busy.release()
-
-        def _reply(self, code, payload):
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def log_message(self, *args):  # no line per request on stderr
-            pass
-
-    server = ThreadingHTTPServer((host, port), Handler)
-    threading.Thread(target=server.serve_forever, daemon=True).start()
-    return server
-
-
-class StepTimer:
-    """Records step wall times; reports mean/p50/p90 past a warmup."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-
-    @property
-    def measured(self) -> List[float]:
-        return self.times[self.warmup:]
-
-    def summary(self) -> dict:
-        m = self.measured or self.times
-        if not m:
-            return {}
-        arr = np.asarray(m)
-        return {"mean_s": float(arr.mean()),
-                "p50_s": float(np.percentile(arr, 50)),
-                "p90_s": float(np.percentile(arr, 90)),
-                "steps": len(m)}

@@ -1,48 +1,22 @@
-"""The port's profiling utilities (``utils/profiling.py``): ``StepTimer``
-against the JAX package's on the same times, ``profile_trace`` writing a
-trace on the CPU, and one capture through ``start_profiler_server``."""
+"""The port's profiling utilities (``utils/profiling.py``): ``span``
+without and with a profiler, and ``profile_trace`` writing a trace on the
+CPU."""
 
 import json
 import os
 import threading
-import time
-import urllib.error
-import urllib.request
 
 import pytest
 import torch
 
-from tacotron2_tpu.utils.profiling import StepTimer as JaxStepTimer
-
-from tacotron2_tpu_torch.utils import (StepTimer, profile_trace,
-                                       start_profiler_server)
+from tacotron2_tpu_torch.utils import profile_trace, span
 from tacotron2_tpu_torch.utils.profiling import latest_trace
-
-TIMES = [0.9, 0.1, 0.3, 0.2, 0.25, 0.4, 0.15]
 
 
 def _names(trace_path):
     with open(trace_path) as f:
         trace = json.load(f)
     return {e.get("name", "") for e in trace["traceEvents"]}
-
-
-@pytest.mark.parametrize("warmup,times", [(2, TIMES), (0, TIMES[:1]),
-                                          (5, TIMES[:3]), (2, [])])
-def test_step_timer_summary_matches_jax(warmup, times):
-    port, jax_ = StepTimer(warmup), JaxStepTimer(warmup)
-    port.times, jax_.times = list(times), list(times)
-    assert port.measured == jax_.measured
-    assert port.summary() == jax_.summary()
-
-
-def test_step_timer_times_its_block():
-    timer = StepTimer(warmup=1)
-    for _ in range(3):
-        with timer:
-            time.sleep(0.01)
-    assert len(timer.times) == 3 and min(timer.times) >= 0.01
-    assert timer.summary()["steps"] == 2
 
 
 def test_profile_trace_writes_a_trace(tmp_path):
@@ -55,35 +29,37 @@ def test_profile_trace_writes_a_trace(tmp_path):
     assert any(e.key == "aten::mm" for e in prof.key_averages())
 
 
-def test_profiler_server_answers_one_capture(tmp_path):
-    """A capture of 200 ms while another thread multiplies: the trace holds
-    that thread's operators; another path is 404."""
-    server = start_profiler_server(0, str(tmp_path / "captures"))
-    port = server.server_address[1]
-    stop = threading.Event()
+@pytest.mark.parametrize("fields", [(), (64,), (3, 32, 128, 30, 1000)])
+def test_span_without_a_profiler_never_records(monkeypatch, fields):
+    """No profiler: ``span`` hands back one shared null context and never
+    calls ``record_function``, whatever its fields."""
+    def refuse(*args, **kw):
+        raise AssertionError("record_function called with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    with span("serve.batch", *fields) as inside:
+        assert inside is None
+    assert span("x", *fields) is span("train.step")
+
+
+def test_span_is_recorded_on_every_thread(tmp_path):
+    """Under ``profile_trace`` (every thread's activity) a span opened on
+    another thread is in the trace, named ``tt2:<name>:<fields>``, on that
+    thread."""
+    tid = {}
 
     def work():
-        x = torch.randn(32, 32)
-        while not stop.is_set():
-            torch.mm(x, x)
-            time.sleep(0.001)
+        tid["native"] = threading.get_native_id()
+        with span("decoder.chunk", 64, 1):
+            torch.ones(4) + 1
 
-    worker = threading.Thread(target=work)
-    worker.start()
-    try:
-        with urllib.request.urlopen(
-                f"http://127.0.0.1:{port}/capture?ms=200", timeout=60) as r:
-            assert r.status == 200
-            answer = json.load(r)
-        assert os.path.exists(answer["trace"])
-        assert "aten::mm" in _names(answer["trace"])
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(f"http://127.0.0.1:{port}/other",
-                                   timeout=60)
-        assert err.value.code == 404
-    finally:
-        stop.set()
-        worker.join(timeout=10)
-        server.shutdown()
-        server.server_close()
+    with profile_trace(str(tmp_path)):
+        worker = threading.Thread(target=work)
+        worker.start()
+        worker.join(timeout=60)
     assert not worker.is_alive()
+    with open(latest_trace(str(tmp_path))) as f:
+        events = json.load(f)["traceEvents"]
+    got = [e for e in events if e.get("name", "").startswith("tt2:")]
+    assert [(e["name"], e["cat"], e["tid"]) for e in got] == [
+        ("tt2:decoder.chunk:64:1", "user_annotation", tid["native"])]
