@@ -451,43 +451,92 @@ def decode_autoregressive_batch(fp: BatchDecoderParams, memory: torch.Tensor,
                                 chunk_steps: int = 64,
                                 generator: Optional[torch.Generator] = None):
     """Full-utterance batched decode: a host loop over chunks that stops
-    once every row's gate has latched (checked once per chunk); the last
-    chunk runs only the steps left before ``max_steps``. Same return
-    contract as ``models.tacotron2.decode_autoregressive``: mel
-    (B, t_max*r, n_mels), gate (B, t_max*r), align (B, t_max*r, T_in),
-    lengths (B,) in frames. ``generator`` (on the memory's device) draws
-    the prenet keep masks of the reference's inference-time dropout."""
+    once every row's gate has latched. The latch is read one chunk behind
+    the launches, so the card never waits on the host between chunks; a
+    chunk launched past the stop is dropped, and the result is the
+    chunk-by-chunk loop's. The last chunk runs only the steps left before
+    ``max_steps``. Same return contract as
+    ``models.tacotron2.decode_autoregressive``: mel (B, t_max*r, n_mels),
+    gate (B, t_max*r), align (B, t_max*r, T_in), lengths (B,) in frames.
+    ``generator`` (on the memory's device) draws the prenet keep masks of
+    the reference's inference-time dropout."""
     inputs = attention_inputs(memory, processed_memory, mask, fp.w1.dtype)
     return _autoregressive(fp, inputs, memory, cfg, max_steps, chunk_steps,
                            generator)
 
 
+class _Latch:
+    """Reads of every row's gate latch, one chunk behind the launches. On a
+    card each chunk's ``finished`` flags are copied behind the chunk into
+    one of two pinned host slots, and an event marks the copy: a read waits
+    for that chunk alone, not for the chunk launched after it. On the CPU
+    the flags are already computed and a read is ``all()``."""
+
+    def __init__(self, finished: torch.Tensor):
+        self.device = finished.device
+        self.cuda = finished.is_cuda
+        if self.cuda:
+            self.slots = torch.empty((2, *finished.shape), dtype=torch.bool,
+                                     pin_memory=True)
+            self.events = (torch.cuda.Event(), torch.cuda.Event())
+        self.posted = 0
+
+    def post(self, finished: torch.Tensor):
+        """Queue the read of one chunk's flags; the handle ``read`` takes."""
+        if not self.cuda:
+            return finished
+        i = self.posted % 2
+        self.posted += 1
+        self.slots[i].copy_(finished, non_blocking=True)
+        self.events[i].record(torch.cuda.current_stream(self.device))
+        return i
+
+    def read(self, handle) -> bool:
+        """Whether every row of the posted chunk has latched."""
+        if not self.cuda:
+            return bool(handle.all())
+        self.events[handle].synchronize()
+        return bool(self.slots[handle].all())
+
+
 def _autoregressive(fp, inputs, memory, cfg, max_steps, chunk_steps,
                     generator, chunk=decoder_chunk):
     """The host loop of ``decode_autoregressive_batch`` on prepared
-    attention inputs, through the chunk function ``chunk``."""
+    attention inputs, through the chunk function ``chunk``. Chunk k+1 is
+    launched from chunk k's carry before chunk k's latch is read; if every
+    row latched in chunk k, chunk k+1 ran past the stop and is dropped
+    (``_autoregressive.discarded``), and the generator is put back to its
+    state before chunk k+1's keep masks."""
     from tacotron2_tpu_torch.models.tacotron2 import init_stream_carry
 
     B, t_in, _ = memory.shape
     r = cfg.n_frames_per_step
     t_max = max_steps or cfg.max_decoder_steps
-    carry = init_stream_carry(memory, cfg)
+    carry = init_stream_carry(memory, cfg)   # no row has latched
+    latch = _Latch(carry.finished)
+    behind = None   # the posted latch of the chunk before the next one
     mels, gates, aligns = [], [], []
     while carry.t < t_max:
         cs = min(chunk_steps, t_max - carry.t)
-        # one span a chunk: the latch read, which waits for the chunk
-        # before, and the next chunk's launch
-        with span("decoder.chunk", cs):
-            if bool(carry.finished.all()):
-                break
-            keep = None
+        # one span a chunk: its launch, then the read of the chunk
+        # before's latch, which waits for that chunk alone
+        with span("decoder.chunk", cs, int(behind is not None)):
+            keep = state = None
             if generator is not None:
+                state = generator.get_state()
                 shape = (cs, B, cfg.prenet_dim)
                 keep = tuple(torch.rand(shape, generator=generator,
                                         device=memory.device) < 0.5
                              for _ in range(2))
-            carry, (mel, gate, align) = _decode_chunk(fp, carry, inputs, cfg,
-                                                      cs, keep, chunk)
+            nxt, (mel, gate, align) = _decode_chunk(fp, carry, inputs, cfg,
+                                                    cs, keep, chunk)
+            posted = latch.post(nxt.finished) if nxt.t < t_max else None
+            if behind is not None and latch.read(behind):
+                _autoregressive.discarded += 1
+                if generator is not None:
+                    generator.set_state(state)
+                break
+        carry, behind = nxt, posted
         mels.append(mel)
         gates.append(gate)
         aligns.append(align)
@@ -502,3 +551,6 @@ def _autoregressive(fp, inputs, memory, cfg, max_steps, chunk_steps,
         gate[:, :done] = torch.cat(gates, dim=1)
         align[:, :done] = torch.cat(aligns, dim=1)
     return mel, gate, align, carry.lengths * r
+
+
+_autoregressive.discarded = 0

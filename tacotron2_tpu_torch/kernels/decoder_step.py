@@ -257,8 +257,10 @@ def decode_autoregressive_fused(fp: FusedDecoderParams, memory: torch.Tensor,
                                 chunk_steps: int = 64,
                                 generator: Optional[torch.Generator] = None):
     """Full-utterance decode of one row: a host loop over chunks that stops
-    once the gate has latched (checked once per chunk). Same return contract
-    as ``models.tacotron2.decode_autoregressive``: mel (1, t_max*r, n_mels),
+    once the gate has latched. The latch is read one chunk behind the
+    launches (``decoder_batch._autoregressive``); a chunk launched past the
+    stop is dropped. Same return contract as
+    ``models.tacotron2.decode_autoregressive``: mel (1, t_max*r, n_mels),
     gate (1, t_max*r), align (1, t_max*r, T_in), lengths (1,) in frames. The
     last chunk runs only the steps left before ``max_steps``, which gives
     what the JAX package's whole last chunk gives once it is cut to

@@ -11,6 +11,8 @@ bf16 (the serving default), atol 1e-2 over three 6-step chunks, where the
 worst field differs by 1.2e-3 (mel) on values up to ~0.5.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -172,3 +174,77 @@ def test_all_masked_row_stays_finite():
                                rtol=1e-6)
     np.testing.assert_array_equal(mel_a[[0, 2]].numpy(),
                                   mel_b[[0, 2]].numpy())
+
+
+def sequential_decode(fp, inputs, memory, cfg, max_steps, chunk_steps,
+                      generator):
+    """The chunk loop that reads each chunk's latch before launching the
+    next (the reference for the look-ahead loop), on the plain chunk."""
+    B, t_in, _ = memory.shape
+    carry = tm.init_stream_carry(memory, cfg)
+    outs = []
+    while carry.t < max_steps:
+        if bool(carry.finished.all()):
+            break
+        cs = min(chunk_steps, max_steps - carry.t)
+        keep = None
+        if generator is not None:
+            keep = tuple(torch.rand((cs, B, cfg.prenet_dim),
+                                    generator=generator) < 0.5
+                         for _ in range(2))
+        carry, out = db._decode_chunk(fp, carry, inputs, cfg, cs, keep,
+                                      db.decoder_chunk_plain)
+        outs.append(out)
+    mel = torch.zeros(B, max_steps, cfg.n_mel_channels)
+    gate = torch.full((B, max_steps), db.GATE_MASK)
+    align = torch.zeros(B, max_steps, t_in)
+    for x, i in ((mel, 0), (gate, 1), (align, 2)):
+        x[:, :carry.t] = torch.cat([o[i] for o in outs], dim=1)
+    return mel, gate, align, carry.lengths
+
+
+@pytest.mark.parametrize("stop,dropout", [
+    (True, False),    # every row latches in the second of four chunks
+    (True, True),     # the same with inference-time prenet dropout
+    (False, False),   # no latch: the decode reaches max_steps
+], ids=["stop", "stop-generator", "cap"])
+def test_look_ahead_equals_sequential_loop(stop, dropout):
+    """The loop that launches chunk k+1 before reading chunk k's latch
+    gives, bit for bit, what the chunk-by-chunk loop gives: the chunk past
+    the stop is dropped (one discard), and a generator is left as the
+    chunk-by-chunk loop leaves it."""
+    cs, max_steps, B = 6, 24, 4
+    cfg = Tacotron2Config(**{**DIMS, "gate_threshold": 1.0})
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(3))
+    fp = db.pack_batch_decoder_params(model, torch.float32)
+    g = torch.Generator().manual_seed(4)
+    memory = torch.randn(B, 20, 128, generator=g) * 0.5
+    proc = torch.randn(B, 20, 128, generator=g) * 0.5
+    mask = torch.arange(20)[None] < torch.tensor([20, 17, 14, 20])[:, None]
+    inputs = db.attention_inputs(memory, proc, mask, torch.float32)
+    rng = lambda: torch.Generator().manual_seed(5) if dropout else None
+    if stop:
+        # a gate threshold between the lowest of the rows' running maxima
+        # after chunk 0 and after chunk 1: some row is still running after
+        # chunk 0, and every row has latched after chunk 1
+        free = sequential_decode(fp, inputs, memory, cfg, max_steps, cs,
+                                 rng())[1]
+        lo = float(free[:, :cs].max(1).values.min())
+        hi = float(free[:, :2 * cs].max(1).values.min())
+        assert lo < hi
+        cfg = cfg.replace(gate_threshold=1 / (1 + math.exp(-(lo + hi) / 2)))
+    g_seq, g_ahead = rng(), rng()
+    want = sequential_decode(fp, inputs, memory, cfg, max_steps, cs, g_seq)
+    discarded = db._autoregressive.discarded
+    launches = db.decoder_chunk_plain.calls
+    got = db._autoregressive(fp, inputs, memory, cfg, max_steps, cs, g_ahead,
+                             chunk=db.decoder_chunk_plain)
+    for x, y, name in zip(got, want, ("mel", "gate", "align", "lengths")):
+        assert torch.equal(x, y), name
+    assert db._autoregressive.discarded - discarded == int(stop)
+    assert db.decoder_chunk_plain.calls - launches == (3 if stop else 4)
+    if stop:
+        assert int(got[3].max()) <= 2 * cs < max_steps
+        assert 0 < int(got[3].max()) - cs
+    if dropout:
+        assert torch.equal(g_ahead.get_state(), g_seq.get_state())

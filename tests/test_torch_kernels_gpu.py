@@ -24,6 +24,8 @@ versions' products.
 """
 
 import importlib
+import json
+import math
 
 import pytest
 import torch
@@ -1385,3 +1387,167 @@ def test_waveglow_on_the_card_matches_the_cpu(cuda):
     assert all(e <= WAVEGLOW_REL for e in errs.values()), errs
     assert float((got["cuda"][3] - audio).abs().max()) <= (
         WAVEGLOW_REL * float(audio.abs().max()))
+
+
+# ------------------------------------- the chunk loop's one-chunk look-ahead
+
+def sequential_decode(fp, inputs, memory, cfg, max_steps, chunk,
+                      generator):
+    """The chunk loop that reads each chunk's latch (a read that drains the
+    stream) before it launches the next: the reference for the loop that
+    reads it one chunk behind."""
+    B, t_in, _ = memory.shape
+    dev = memory.device
+    carry = tm.init_stream_carry(memory, cfg)
+    outs = []
+    while carry.t < max_steps:
+        if bool(carry.finished.all()):
+            break
+        cs = min(64, max_steps - carry.t)
+        keep = None
+        if generator is not None:
+            keep = tuple(torch.rand((cs, B, cfg.prenet_dim),
+                                    generator=generator, device=dev) < 0.5
+                         for _ in range(2))
+        carry, out = db._decode_chunk(fp, carry, inputs, cfg, cs, keep,
+                                      chunk)
+        outs.append(out)
+    mel = torch.zeros(B, max_steps, cfg.n_mel_channels, device=dev)
+    gate = torch.full((B, max_steps), db.GATE_MASK, device=dev)
+    align = torch.zeros(B, max_steps, t_in, device=dev)
+    for x, i in ((mel, 0), (gate, 1), (align, 2)):
+        x[:, :carry.t] = torch.cat([o[i] for o in outs], dim=1)
+    return mel, gate, align, carry.lengths
+
+
+def mid_decode_stop(gate, cs=64):
+    """(step, gate threshold, sign) at which every row has latched by that
+    step and some row had not one step before, on the gate times sign: the
+    middle one of the steps after the first chunk and before the last at
+    which the lowest of the rows' running gate maxima rises, by more than
+    the threshold's round trip through the sigmoid can move it, on the
+    sign with the more such steps (a seeded gate drifts up or down)."""
+    best = []
+    for sign in (1, -1):
+        low = (sign * gate.float()).cummax(dim=1).values.min(dim=0).values
+        low = low.cpu()
+        rises = [t for t in range(cs, low.shape[0] - cs)
+                 if low[t] - low[t - 1] > 1e-6]
+        if len(rises) > len(best):
+            best = rises
+            t = rises[len(rises) // 2]
+            logit = (float(low[t - 1]) + float(low[t])) / 2
+            found = t, 1 / (1 + math.exp(-logit)), sign
+    assert best, "the lowest running maximum never rises mid-decode"
+    return found
+
+
+def decode_trace(run, tmp_path):
+    """run() under torch.profiler (host and card): the CUDA runtime calls
+    as (start us, name, correlation), by start, the correlations of the
+    ``persistent_chunk_kernel`` launches, and the names of the device's
+    copies. A session that records no chunk kernel is taken again, up to
+    three times (as ``kernel_names``)."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        path = tmp_path / f"decode{i}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        corr = lambda e: e.get("args", {}).get("correlation")
+        chunks = {corr(e) for e in events if e.get("cat") == "kernel"
+                  and "persistent_chunk_kernel" in e["name"]}
+        if chunks:
+            break
+    calls = sorted((e["ts"], e["name"], corr(e)) for e in events
+                   if e.get("cat") == "cuda_runtime")
+    copies = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"]
+    return out, calls, chunks, copies
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("stop", [False, True], ids=["never", "mid"])
+@pytest.mark.parametrize("B", [32, 1])
+def test_look_ahead_decode_equals_sequential(cuda, B, stop, dropout,
+                                             tmp_path):
+    """Rows 5 (B=32 through ``decode_autoregressive_batch``) and 6 (B=1
+    through ``decode_autoregressive_fused``) at full width, T_in 128, 1000
+    steps: the loop that launches chunk k+1 before reading chunk k's latch
+    gives the chunk-by-chunk loop's bits, with a gate that never fires and
+    with one at which every row has latched mid-decode (the chunk past the
+    stop dropped, one discard), and leaves a generator as that loop does.
+    On the host, chunk k's latch is read (``cudaEventSynchronize``) after
+    chunk k+1's launch and before chunk k+2's, nothing drains the stream
+    between the first launch and the last, and no copy goes to pageable
+    memory."""
+    from tacotron2_tpu_torch.config import create_config
+    cfg = create_config().replace(gate_threshold=1.0)
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(11)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(B)
+    T, steps = 128, 1000
+    memory = torch.randn(B, T, cfg.encoder_embedding_dim, generator=g,
+                         device=cuda) * 0.5
+    proc = (torch.randn(B, T, cfg.attention_dim, generator=g, device=cuda)
+            * 0.5).bfloat16().float()
+    lengths = torch.randint(T // 2, T + 1, (B,), generator=g, device=cuda)
+    lengths[0] = T
+    mask = torch.arange(T, device=cuda)[None] < lengths[:, None]
+    if B == 1:
+        pack = lambda: ds.pack_decoder_params(model, torch.bfloat16)
+        inputs = ds.attention_inputs(memory, proc, mask)
+        chunk, decode = ds.decoder_step_chunk, ds.decode_autoregressive_fused
+    else:
+        pack = lambda: db.pack_batch_decoder_params(model, torch.bfloat16)
+        inputs = db.attention_inputs(memory, proc, mask, torch.bfloat16)
+        chunk, decode = db.decoder_chunk, db.decode_autoregressive_batch
+    rng = lambda: (torch.Generator(device=cuda).manual_seed(7) if dropout
+                   else None)
+    fp = pack()
+    if stop:
+        free = sequential_decode(fp, inputs, memory, cfg, steps, chunk,
+                                 rng())[1]
+        t_stop, thr, sign = mid_decode_stop(free)
+        cfg = cfg.replace(gate_threshold=thr)
+        if sign < 0:   # the gate's column negated: every gate logit negated
+            layer = model.decoder.gate_layer.linear_layer
+            with torch.no_grad():
+                layer.weight.neg_()
+                layer.bias.neg_()
+            fp = pack()
+    g_seq = rng()
+    want = sequential_decode(fp, inputs, memory, cfg, steps, chunk, g_seq)
+
+    def run():
+        gen, discarded = rng(), db._autoregressive.discarded
+        out = decode(fp, memory, proc, mask, cfg, max_steps=steps,
+                     generator=gen)
+        return out, gen, db._autoregressive.discarded - discarded
+
+    (got, g_ahead, discards), calls, chunks, copies = decode_trace(
+        run, tmp_path)
+    for x, y, name in zip(got, want, ("mel", "gate", "align", "lengths")):
+        assert torch.equal(x, y), name
+    assert discards == int(stop)
+    if stop:
+        assert int(got[3].max()) == t_stop + 1
+    if dropout:
+        assert torch.equal(g_ahead.get_state(), g_seq.get_state())
+    launches = [ts for ts, _, c in calls if c in chunks]
+    reads = [ts for ts, name, _ in calls if name == "cudaEventSynchronize"]
+    n = t_stop // 64 + 2 if stop else -(-steps // 64)
+    assert len(launches) == n and len(reads) == n - 1, (len(launches),
+                                                        len(reads))
+    for k, read in enumerate(reads):
+        assert launches[k + 1] < read, k
+        assert k + 2 == n or read < launches[k + 2], k
+    drains = [name for ts, name, _ in calls
+              if launches[0] <= ts <= launches[-1]
+              and ("StreamSynchronize" in name or "DeviceSynchronize" in name
+                   or name == "cudaMemcpy")]
+    assert not drains, drains
+    assert not [c for c in copies if "Pageable" in c], copies

@@ -18,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tacotron2_tpu_torch import data as tdata
 from tacotron2_tpu_torch.config import Tacotron2Config
+from tacotron2_tpu_torch.kernels import decoder_batch as db
 from tacotron2_tpu_torch.models import tacotron2 as tm
 from tacotron2_tpu_torch.serve import BatchingSynthesizer
 from tacotron2_tpu_torch.text import text_to_sequence
@@ -137,7 +138,9 @@ def test_serving_spans_run_on_the_worker_thread(serving):
 
 def test_serving_spans_nest_in_their_batch(serving):
     """Each batch: its gathering, then its span holding three chunks of
-    64, 64 and 22 steps and, after them, one copy to the host."""
+    64, 64 and 22 steps, the first launched with no latch to read and the
+    other two ahead of the read of the chunk before, and, after them, one
+    copy to the host."""
     events, _, _ = serving
     collect = spans(events, "serve.collect")
     chunks = spans(events, "decoder.chunk")
@@ -145,7 +148,8 @@ def test_serving_spans_nest_in_their_batch(serving):
     for i, (b0, b1, _, _) in enumerate(spans(events, "serve.batch")):
         assert collect[i][1] <= b0
         inside = [c for c in chunks if b0 <= c[0] and c[1] <= b1]
-        assert [c[2] for c in inside] == [["64"], ["64"], ["22"]]
+        assert [c[2] for c in inside] == [["64", "0"], ["64", "1"],
+                                          ["22", "1"]]
         assert [h for h in to_host if b0 <= h[0] and h[1] <= b1] \
             == [to_host[i]]
         assert inside[-1][1] <= to_host[i][0]
@@ -189,8 +193,9 @@ def test_serving_traced_computes_what_untraced_does(serving):
 
 
 def test_decoder_chunk_holding_only_the_stop(tmp_path):
-    """A gate that fires at the first step: the first chunk runs, and the
-    second span holds only the latch read that stops the loop."""
+    """A gate that fires at the first step: the first chunk runs, the
+    second is launched ahead of the first's latch read, which stops the
+    loop, and is dropped; nothing of the decoder runs after it."""
     ids = np.zeros((2, 16), np.int32)
     lengths = np.zeros((2,), np.int32)
     for i, t in enumerate(TEXTS[:2]):
@@ -204,18 +209,21 @@ def test_decoder_chunk_holding_only_the_stop(tmp_path):
             model(30.0), torch.from_numpy(ids), torch.from_numpy(lengths),
             SERVE, max_steps=MAX_STEPS, device="cpu")
 
+    discarded = db._autoregressive.discarded
     events = traced(body, tmp_path)
     chunks = spans(events, "decoder.chunk")
-    assert [c[2] for c in chunks] == [["64"], ["64"]]
+    assert [c[2] for c in chunks] == [["64", "0"], ["64", "1"]]
+    assert db._autoregressive.discarded - discarded == 1
     assert out["res"].mel_lengths.tolist() == [1, 1]
-    # the stop runs no product: the first chunk's, none after
+    # each chunk's products inside its span, none after the stop
 
-    def products(c):
+    def products(t0, t1):
         return [e["name"] for e in events if e.get("cat") == "cpu_op"
-                and c[0] <= e["ts"] and e["ts"] + e["dur"] <= c[1]
+                and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1
                 and ("mm" in e["name"] or "linear" in e["name"])]
 
-    assert products(chunks[0]) and not products(chunks[1])
+    assert products(*chunks[0][:2]) and products(*chunks[1][:2])
+    assert not products(chunks[1][1], float("inf"))
 
 
 # -------------------------------------------------------------- training
