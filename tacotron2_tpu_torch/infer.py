@@ -212,7 +212,10 @@ def load_vocoder(kind: str, path: str, cfg: Tacotron2Config, *,
         vocoder_cfg = waveglow.WaveGlowConfig(**ckpt["config"])
         module = waveglow.WaveGlow(vocoder_cfg)
     else:
-        vocoder_cfg = hifigan.HiFiGANConfig(**ckpt["config"])
+        # a checkpoint from before the slope before conv_post was a
+        # setting was trained at LRELU_SLOPE there
+        vocoder_cfg = hifigan.HiFiGANConfig(**{
+            "post_lrelu_slope": hifigan.LRELU_SLOPE, **ckpt["config"]})
         module = hifigan.Generator(vocoder_cfg)
     if (vocoder_cfg.n_mel_channels, vocoder_cfg.hop_length) != (
             cfg.n_mel_channels, cfg.hop_length):

@@ -4,11 +4,16 @@ Counterpart of the generator of the JAX package's ``models/hifigan.py``
 (HiFi-GAN, arXiv:2010.05646, V1): a fully convolutional feed-forward stack
 of transposed-conv upsampling stages, each followed by the averaged
 multi-receptive-field ResBlock fan. Weight norm is dropped, as there; init
-is the paper's N(0, 0.01). Module names follow the HiFi-GAN reference
-implementation (``conv_pre``, ``ups``, ``resblocks`` flat by stage and
-kernel, ``convs1``/``convs2``, ``conv_post``); ``generator`` takes the
-module where the JAX package takes its params and keeps its channels-last
-``(B, T_mel, n_mels)`` input. Every convolution goes to PyTorch's own
+is the paper's N(0, 0.01). Every leaky ReLU has slope 0.1 but the one
+before ``conv_post``, whose slope is ``HiFiGANConfig.post_lrelu_slope``:
+by default 0.01, ``F.leaky_relu``'s default, which the published generator
+(jik876/hifi-gan ``Generator.forward``) takes there; the JAX package
+applies 0.1 there, so a comparison with it passes 0.1. Module names
+follow the HiFi-GAN reference implementation (``conv_pre``, ``ups``,
+``resblocks`` flat by stage and kernel, ``convs1``/``convs2``,
+``conv_post``); ``generator`` takes the module where the JAX package
+takes its params and keeps its channels-last ``(B, T_mel, n_mels)``
+input. Every convolution goes to PyTorch's own
 (cuDNN on a CUDA device), as the JAX package leaves them to XLA.
 
 For training, ``MultiPeriodDiscriminator`` and ``MultiScaleDiscriminator``
@@ -42,6 +47,8 @@ class HiFiGANConfig(NamedTuple):
     resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
     resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = (
         (1, 3, 5), (1, 3, 5), (1, 3, 5))
+    # the leaky ReLU before conv_post (the others are LRELU_SLOPE)
+    post_lrelu_slope: float = 0.01
     # discriminators
     mpd_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
     msd_scales: int = 3
@@ -125,8 +132,8 @@ class Generator(nn.Module):
         _init_normal(self, generator)
 
 
-def _leaky(x: torch.Tensor) -> torch.Tensor:
-    return torch.nn.functional.leaky_relu(x, LRELU_SLOPE)
+def _leaky(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
+    return torch.nn.functional.leaky_relu(x, slope)
 
 
 def _resblock(block: ResBlock, x: torch.Tensor, dilations,
@@ -155,8 +162,8 @@ def generator(model: Generator, mel: torch.Tensor, cfg: HiFiGANConfig,
                           compute_dtype)
             acc = y if acc is None else acc + y
         x = acc / n_res
-    x = conv1d(_leaky(x), model.conv_post.weight, model.conv_post.bias,
-               compute_dtype)
+    x = conv1d(_leaky(x, cfg.post_lrelu_slope), model.conv_post.weight,
+               model.conv_post.bias, compute_dtype)
     return torch.tanh(x[..., 0]).float()
 
 

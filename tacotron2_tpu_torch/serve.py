@@ -198,10 +198,21 @@ class VocoderRunner:
     makes it (the HTTP server's handlers, a thread per request). PyTorch
     keeps cuDNN's execution plans per thread, so a call on a fresh thread
     builds one for every convolution again: 63.8 ms against 7.3 ms for
-    HiFi-GAN V1 on 200 frames (H100, ``chip_smoke.py``). One thread also
+    HiFi-GAN V1 on 200 frames (H100, ``chip_smoke.py``). ``submit`` queues
+    a mel there and returns a future without waiting, so that a thread
+    which must not block (a synthesizer's worker resolving a mel) can hand
+    the mel on; ``__call__`` waits for it. One thread also
     makes concurrent calls safe: they run one after another, on the card's
     current stream, reading weights nothing writes (WaveGlow's inverse 1x1
-    weights are made here, before any call)."""
+    weights are made here, before any call).
+
+    On a CUDA device HiFi-GAN's generator runs as one CUDA graph per bucket
+    up to ``max_frames``, captured on the bucket's first call: a call is
+    then one launch instead of hundreds (V1 at 1000 frames holds ~11 ms of
+    device work on an H100), so the runner's thread neither holds the host while the
+    card sits idle between its launches nor queues them one by one between
+    the kernels of a synthesizer sharing the card. A longer mel, and
+    WaveGlow (its noise is drawn afresh on every call), run eagerly."""
 
     def __init__(self, kind: str,
                  vocoder: Union[hifigan.Generator, waveglow.WaveGlow,
@@ -228,23 +239,70 @@ class VocoderRunner:
         self.hop = vocoder_cfg.hop_length
         if kind == "waveglow":
             self.model.inverse_weights()
+        # bucket frames -> (padded mel buffer, graph, audio buffer)
+        self._graphs = {}
         self._worker = ThreadPoolExecutor(1, thread_name_prefix="vocoder")
+
+    def submit(self, mel: np.ndarray) -> Future:
+        """Queue a (n_frames, n_mels) float mel for the runner's thread:
+        a future of its (n_frames * hop,) float audio. Never blocks; mels
+        run one at a time, in the order they were submitted."""
+        return self._worker.submit(self._traced, mel, time.perf_counter())
 
     def __call__(self, mel: np.ndarray) -> np.ndarray:
         """(n_frames, n_mels) float mel -> (n_frames * hop,) float audio."""
-        return self._worker.submit(self._vocode, mel).result()
+        return self.submit(mel).result()
+
+    def _bucket(self, n: int) -> int:
+        return mel_bucket(n, self.bucket_step, max(self.max_frames, n))
+
+    def _traced(self, mel: np.ndarray, submitted: float) -> np.ndarray:
+        """One mel on the runner's thread, in a span whose fields are the
+        mel's frames, its bucket's frames, and its wait from ``submit`` to
+        here, in us."""
+        n = mel.shape[0]
+        wait_us = int((time.perf_counter() - submitted) * 1e6)
+        with span("vocoder.vocode", n, self._bucket(n), wait_us):
+            return self._vocode(mel)
+
+    def _graphed(self, t_mel: int, n_mels: int):
+        """The generator at ``t_mel`` frames captured as a CUDA graph over a
+        padded mel buffer, after one eager pass on a side stream (cuDNN's
+        plans for this thread and the allocator's blocks are made outside
+        the capture)."""
+        if t_mel not in self._graphs:
+            padded = torch.zeros(1, t_mel, n_mels, device=self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                hifigan.generator(self.model, padded, self.cfg)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                audio = hifigan.generator(self.model, padded, self.cfg)
+            self._graphs[t_mel] = (padded, graph, audio)
+        return self._graphs[t_mel]
 
     @torch.no_grad()
     def _vocode(self, mel: np.ndarray) -> np.ndarray:
         n = mel.shape[0]
-        t_mel = mel_bucket(n, self.bucket_step, max(self.max_frames, n))
-        padded = torch.zeros(1, t_mel, mel.shape[1], device=self.device)
+        t_mel = self._bucket(n)
+        graphed = (self.kind == "hifigan" and self.device.type == "cuda"
+                   and t_mel <= self.max_frames)
+        if graphed:
+            padded, graph, audio = self._graphed(t_mel, mel.shape[1])
+            padded[0, n:].zero_()
+        else:
+            padded = torch.zeros(1, t_mel, mel.shape[1], device=self.device)
         padded[0, :n] = torch.as_tensor(mel, dtype=torch.float32)
-        if self.kind == "hifigan":
+        if graphed:
+            graph.replay()
+        elif self.kind == "hifigan":
             audio = hifigan.generator(self.model, padded, self.cfg)
         else:
             audio = waveglow.infer(self.model, padded, self.cfg,
                                    sigma=self.sigma,
                                    generator=torch.Generator(
                                        device=self.device).manual_seed(0))
-        return audio[0, :n * self.hop].cpu().numpy()
+        with span("vocoder.to_host"):
+            return audio[0, :n * self.hop].cpu().numpy()

@@ -30,7 +30,10 @@ ODD = dict(n_mel_channels=12, upsample_rates=(3, 2),
 
 
 def both(kw, seed, scale=0.3):
-    jcfg, tcfg = jh.HiFiGANConfig(**kw), th.HiFiGANConfig(**kw)
+    """The JAX generator and the port's on the same weights, the port's
+    at the JAX package's slope before ``conv_post``."""
+    jcfg = jh.HiFiGANConfig(**kw)
+    tcfg = th.HiFiGANConfig(**kw, post_lrelu_slope=jh.LRELU_SLOPE)
     params = jh.init_generator(jax.random.PRNGKey(seed), jcfg)
     rng = np.random.RandomState(seed)
     params = jax.tree.map(
@@ -132,3 +135,74 @@ def test_seeded_init_and_keys():
     assert not any(p.requires_grad for p in a.parameters())
     assert {"conv_pre.weight", "ups.1.bias", "resblocks.3.convs2.1.weight",
             "conv_post.weight"} <= set(sa)
+
+
+# ------------------------------------------- the published generator, plain
+
+V1 = {}  # the defaults: V1's widths and the published slope
+
+
+def vocoder_block(kw):
+    """config_v1.json's keys for a generator of ``kw``'s widths."""
+    cfg = th.HiFiGANConfig(**kw)
+    return {"resblock": "1", "num_mels": cfg.n_mel_channels,
+            "upsample_rates": list(cfg.upsample_rates),
+            "upsample_kernel_sizes": list(cfg.upsample_kernel_sizes),
+            "upsample_initial_channel": cfg.upsample_initial_channel,
+            "resblock_kernel_sizes": list(cfg.resblock_kernel_sizes),
+            "resblock_dilation_sizes": [list(d) for d in
+                                        cfg.resblock_dilation_sizes],
+            "hop_size": cfg.hop_length}
+
+
+def port_and_reference(kw, seed, slope=None, frames=6):
+    """The port's generator and the plain reference's
+    (``benchmark/reference/hifigan.py``) on the benchmark's seeded weights
+    (``benchmark/weights_hifigan.py``), fed one mel of ``frames`` frames
+    at the scale of Tacotron 2's served mels; the port at ``slope`` before
+    ``conv_post`` (the published 0.01 by default)."""
+    from benchmark import weights_hifigan
+    from benchmark.reference import hifigan as ref
+    v = vocoder_block(kw)
+    W = weights_hifigan.generator(v, seed, "cpu")
+    cfg = th.HiFiGANConfig(**kw) if slope is None else \
+        th.HiFiGANConfig(**dict(kw, post_lrelu_slope=slope))
+    model = th.Generator(cfg)
+    model.load_state_dict(W, strict=True)
+    mel = torch.from_numpy(0.15 * np.random.RandomState(seed).randn(
+        1, frames, cfg.n_mel_channels).astype(np.float32))
+    got = th.generator(model, mel, cfg)
+    want = ref.generator(W, mel.transpose(1, 2), ref.Dims.of(v))
+    return got, want
+
+
+@pytest.mark.parametrize("kw,frames", [(SMALL, 9), (ODD, 7), (V1, 4)])
+def test_generator_matches_plain_reference(kw, frames):
+    """The port at the published slope against jik876/hifi-gan's
+    ``Generator.forward`` written plainly, fp32 on the CPU: atol 1e-5 on
+    audio of order 0.1, as against the JAX generator (the same
+    convolutions, channels last against channels first, summed in another
+    order). The weights are the benchmark's (N(0, (1.15 / sqrt(fan_in))^2)),
+    so that the audio is of order 0.1 and not the init's 1e-4."""
+    got, want = port_and_reference(kw, seed=11, frames=frames)
+    hop = th.HiFiGANConfig(**kw).hop_length
+    assert got.shape == want.shape == (1, frames * hop)
+    assert float(want.abs().max()) > 5e-2
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_jax_slope_fails_the_audio_check():
+    """The generator at the JAX package's slope before ``conv_post`` (the
+    fault the published slope fixes) lies farther from the plain
+    reference, as a share of its largest |value|, than the serving cell's
+    ``audio_gap`` limit allows, at V1's widths. The limit, 0.006, is the
+    one ``serve-hifigan-poisson`` holds the served audio to, set between
+    the port's readings on the H100 (3.0e-3 at most) and the plain
+    generator's in bf16 operands (1.02e-2 at least)."""
+    from benchmark.loops.common import gap_share
+    limit = 0.006
+    got, want = port_and_reference(V1, seed=12, slope=jh.LRELU_SLOPE,
+                                   frames=4)
+    assert gap_share(got, want) > 3 * limit
+    sound, _ = port_and_reference(V1, seed=12, frames=4)
+    assert gap_share(sound, want) < limit / 100

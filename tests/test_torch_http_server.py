@@ -209,7 +209,9 @@ def test_stream_mel_ndjson(server, weights):
 
 @pytest.fixture(scope="module")
 def hifigan_server(weights):
-    jcfg, tcfg = jh.HiFiGANConfig(**HG), th.HiFiGANConfig(**HG)
+    jcfg = jh.HiFiGANConfig(**HG)
+    # the JAX package's slope before conv_post
+    tcfg = th.HiFiGANConfig(**HG, post_lrelu_slope=jh.LRELU_SLOPE)
     # redrawn at N(0, 0.09 / fan_in): the init's N(0, 0.01) gives audio
     # below one int16 step
     rng = np.random.RandomState(1)

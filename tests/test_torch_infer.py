@@ -60,7 +60,9 @@ def world():
     w.params, w.stats = jm.init_params(jax.random.PRNGKey(0), w.jcfg)
     w.model = tm.Tacotron2(w.tcfg)
     w.model.load_state_dict(state_dict_from_jax(w.params, w.stats, w.tcfg))
-    w.jhg, w.thg = jh.HiFiGANConfig(**HG), th.HiFiGANConfig(**HG)
+    w.jhg = jh.HiFiGANConfig(**HG)
+    # the JAX package's slope before conv_post
+    w.thg = th.HiFiGANConfig(**HG, post_lrelu_slope=jh.LRELU_SLOPE)
     rng = np.random.RandomState(1)
     w.gparams = jax.tree.map(
         lambda p: jnp.asarray(rng.randn(*p.shape).astype(np.float32) * 0.3

@@ -82,9 +82,11 @@ def world(tmp_path_factory):
                               / np.sqrt(max(p.size // p.shape[-1], 1))),
         jh.init_generator(jax.random.PRNGKey(1), jh.HiFiGANConfig(**HG)))
     hg_path, wg_path = str(root / "hifigan.pt"), str(root / "waveglow.pt")
-    torch.save({"kind": "hifigan", "config": th.HiFiGANConfig(**HG)._asdict(),
-                "state_dict": hifigan_state_dict_from_jax(
-                    gparams, th.HiFiGANConfig(**HG))}, hg_path)
+    # the JAX package's slope before conv_post, carried by the checkpoint
+    tcfg = th.HiFiGANConfig(**HG, post_lrelu_slope=jh.LRELU_SLOPE)
+    torch.save({"kind": "hifigan", "config": tcfg._asdict(),
+                "state_dict": hifigan_state_dict_from_jax(gparams, tcfg)},
+               hg_path)
     wg = twg.WaveGlow(WG, torch.Generator().manual_seed(2))
     with torch.no_grad():
         for wn in wg.WN:

@@ -19,8 +19,9 @@ from torch.profiler import ProfilerActivity, profile
 from tacotron2_tpu_torch import data as tdata
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.kernels import decoder_batch as db
+from tacotron2_tpu_torch.models import hifigan as th
 from tacotron2_tpu_torch.models import tacotron2 as tm
-from tacotron2_tpu_torch.serve import BatchingSynthesizer
+from tacotron2_tpu_torch.serve import BatchingSynthesizer, VocoderRunner
 from tacotron2_tpu_torch.text import text_to_sequence
 from tacotron2_tpu_torch.training.checkpoint import state_dict_of
 from tacotron2_tpu_torch.training.trainer import Trainer
@@ -224,6 +225,88 @@ def test_decoder_chunk_holding_only_the_stop(tmp_path):
 
     assert products(*chunks[0][:2]) and products(*chunks[1][:2])
     assert not products(chunks[1][1], float("inf"))
+
+
+# --------------------------------------------------------------- vocoder
+
+HG = th.HiFiGANConfig(n_mel_channels=6, upsample_rates=(4, 4),
+                      upsample_kernel_sizes=(8, 8),
+                      upsample_initial_channel=16,
+                      resblock_kernel_sizes=(3, 5),
+                      resblock_dilation_sizes=((1, 3), (1, 3)))
+VOC_FRAMES = (13, 16)  # bucket_step 8: buckets of 16 and 16
+
+
+def vocoder_runner():
+    gen = th.Generator(HG, torch.Generator().manual_seed(4))
+    return VocoderRunner("hifigan", gen, HG, max_frames=32, bucket_step=8,
+                         device="cpu")
+
+
+def voc_mels():
+    rng = np.random.RandomState(8)
+    return [rng.randn(n, 6).astype(np.float32) for n in VOC_FRAMES]
+
+
+@pytest.fixture(scope="module")
+def vocoding(tmp_path_factory):
+    """Two mels submitted at once to one ``VocoderRunner``, traced, and
+    the same two untraced. The runner's thread is held until both are
+    submitted, so that each waits from before the first call starts,
+    however the threads are scheduled."""
+    runner = vocoder_runner()
+    untraced = [runner(m) for m in voc_mels()]
+    got = {}
+
+    def body():
+        hold = threading.Event()
+        held = runner._worker.submit(hold.wait)
+        futures = [runner.submit(m) for m in voc_mels()]
+        hold.set()
+        held.result()
+        got["traced"] = [f.result() for f in futures]
+    events = traced(body, tmp_path_factory.mktemp("vocoding"))
+    worker = {t.native_id for t in runner._worker._threads}
+    return events, worker, got["traced"], untraced
+
+
+def test_vocoder_spans_on_the_runner_thread(vocoding):
+    """One ``vocoder.vocode`` a mel on the runner's thread, its fields
+    the frames, the bucket's frames and the wait from submit (the second
+    mel, submitted before the first call started, waited out that call),
+    holding one ``vocoder.to_host`` after the generator's convolutions."""
+    events, worker, _, _ = vocoding
+    calls = spans(events, "vocoder.vocode")
+    to_host = spans(events, "vocoder.to_host")
+    assert len(calls) == len(to_host) == 2
+    assert {s[3] for s in calls + to_host} == worker
+    assert [c[2][:2] for c in calls] == [["13", "16"], ["16", "16"]]
+    (a0, a1, fa, _), (b0, _, fb, _) = calls
+    assert int(fb[2]) >= (a1 - a0) > 0 and int(fa[2]) >= 0
+    convs = [e["ts"] for e in events if e.get("cat") == "cpu_op"
+             and "conv" in e["name"]]
+    for (c0, c1, _, _), (h0, h1, f, _) in zip(calls, to_host):
+        assert c0 <= h0 < h1 <= c1 and f == []
+        assert any(c0 <= t < h0 for t in convs)
+
+
+def test_vocoder_traced_computes_what_untraced_does(vocoding):
+    _, _, traced_audio, untraced = vocoding
+    for a, b in zip(traced_audio, untraced):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_vocoder_spans_cost_nothing_without_a_profiler(monkeypatch):
+    """No profiler: a submit opens no ``record_function`` on either
+    thread."""
+    def refuse(*args, **kw):
+        raise AssertionError("record_function called with no profiler")
+    runner = vocoder_runner()
+    mel = voc_mels()[0]
+    want = runner(mel)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    np.testing.assert_array_equal(runner.submit(mel).result(), want)
 
 
 # -------------------------------------------------------------- training

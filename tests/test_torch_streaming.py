@@ -60,7 +60,9 @@ class World:
         self.model = tm.Tacotron2(self.tcfg)
         self.model.load_state_dict(state_dict_from_jax(
             self.params, self.stats, self.tcfg))
-        self.jhg, self.thg = jh.HiFiGANConfig(**HG), th.HiFiGANConfig(**HG)
+        self.jhg = jh.HiFiGANConfig(**HG)
+        # the JAX package's slope before conv_post
+        self.thg = th.HiFiGANConfig(**HG, post_lrelu_slope=jh.LRELU_SLOPE)
         rng = np.random.RandomState(1)
         self.gparams = jax.tree.map(
             lambda p: jnp.asarray(rng.randn(*p.shape).astype(np.float32) * 0.3

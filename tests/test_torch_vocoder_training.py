@@ -213,7 +213,9 @@ def test_hifigan_step_matches_jax():
     starts at zero is, after one step, the Adam step itself, whose
     elements of small gradient turn fp32 rounding into 3e-4 to 6e-4 of
     its largest value (measured on the JAX init)."""
-    jcfg, tcfg = jh.HiFiGANConfig(**HG), th.HiFiGANConfig(**HG)
+    jcfg = jh.HiFiGANConfig(**HG)
+    # the JAX package's slope before conv_post
+    tcfg = th.HiFiGANConfig(**HG, post_lrelu_slope=jh.LRELU_SLOPE)
     jmel, tmel = JaxMelConfig(**MEL_KW), MelConfig(**MEL_KW)
     js = jht.create_hifigan_state(jax.random.PRNGKey(0), jcfg)
     gen, mpd, msd = (scaled(t, seed) for seed, t in enumerate(
