@@ -1,6 +1,6 @@
 """Where a step of the persistent decoder chunk goes, on the card.
 
-    python -m tacotron2_tpu_torch.kernels.chunk_probe [B | step]
+    python -m tacotron2_tpu_torch.kernels.chunk_probe [B | step] [T_in]
 
 Builds two variants of ``csrc/decoder_batch.cu`` (the batched chunk), or
 with ``step`` of ``csrc/decoder_step.cu`` (the single-utterance chunk),
@@ -8,12 +8,14 @@ and of the persistent kernel both include (``csrc/persistent_chunk.cuh``)
 beside the normal build (in ``build/kernels/probe/``): one that records
 the GPU clock (``%globaltimer``) in block 0 after each grid barrier, and
 one whose phases do no work, so that a chunk is its barriers alone. Then,
-at the default config's full width (seeded random weights, bf16, T_in=128,
-one 64-step chunk at B rows, 8 by default; one row for ``step``), it prints
-the chunk's time as built and in both variants, and the median time of
-each phase over the steps (from the barrier before it to the one after it,
-so each includes one barrier). Needs one CUDA device and nvcc; nothing
-here runs on import.
+at the default config's full width (seeded random weights, bf16, one
+64-step chunk at B rows, 8 by default, one row for ``step``; T_in encoder
+positions, 128 by default), it prints the chunk's time as built and in
+both variants, and the median time of each phase over the steps (from the
+barrier before it to the one after it, so each includes one barrier),
+with the rounds of items the phase takes where it shares out items (the
+persistent plan's, ``phase_rounds`` of the chunk's wrapper). Needs one
+CUDA device and nvcc; nothing here runs on import.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from tacotron2_tpu_torch.kernels import decoder_step as ds
 
 PHASES = ("prenet", "attention LSTM", "query", "energies",
           "softmax and context", "decoder LSTM", "projection")
+# each phase's index in the plan's rounds of items; the LSTM phases have none
+ITEM_PHASE = (0, None, 1, 2, 3, None, 4)
 _TRACE = '''
 __device__ unsigned long long pc_trace[8192];
 __device__ __forceinline__ unsigned long long gtime() {
@@ -62,8 +66,8 @@ def _variants(source="decoder_batch"):
         "grid_sync(P.bar, target);": "grid_sync(P.bar, target); PC_MARK",
         "    const int par = st & 1;\n":
             "    const int par = st & 1;\n    int ph = 0;\n    PC_MARK\n"})
-    idle = (head.replace("for (int it = bid; it < B * n_",
-                         "for (int it = bid; it < 0 * n_")
+    idle = (head.replace("for (int it = bid; it < P.items[",
+                         "for (int it = bid; it < 0 * P.items[")
             .replace("    pc_lstm<NB>(", "    if (c.t0 < 0) pc_lstm<NB>("))
     return {"traced": {name: cu, "persistent_chunk.cuh": head},
             "idle": {name: cu, "persistent_chunk.cuh": idle}}
@@ -97,16 +101,15 @@ def _build_variants(source, signatures):
     return libs
 
 
-def _chunk_args(B: int, dev: torch.device, step: bool):
-    """The chunk's arguments: the batched chunk's at B rows, or with
-    ``step`` the single-utterance chunk's (B=1, its pack and its fp32
-    attention inputs)."""
+def _chunk_args(B: int, T: int, dev: torch.device, step: bool):
+    """The chunk's arguments at T encoder positions: the batched chunk's
+    at B rows, or with ``step`` the single-utterance chunk's (B=1, its
+    pack and its fp32 attention inputs)."""
     from tacotron2_tpu_torch.config import create_config
     from tacotron2_tpu_torch.models import tacotron2 as tm
     cfg = create_config()
     model = tm.Tacotron2(cfg, torch.Generator().manual_seed(1234)).to(dev)
     g = torch.Generator(device=dev).manual_seed(3)
-    T = 128
     rand = lambda n: torch.randn(B, T, n, generator=g, device=dev) * 0.3
     if step:
         fp = ds.pack_decoder_params(model, torch.bfloat16)
@@ -149,12 +152,14 @@ def main(argv=None) -> int:
         return 1
     step = bool(argv) and argv[0] == "step"
     B = 1 if step else int(argv[0]) if argv else 8
+    T = int(argv[1]) if len(argv) > 1 else 128
     mod, source = (ds, "decoder_step") if step else (db, "decoder_batch")
     dev = torch.device("cuda")
-    args, kw = _chunk_args(B, dev, step)
+    args, kw = _chunk_args(B, T, dev, step)
     chunk = ds.decoder_step_chunk if step else db.decoder_chunk
     run = lambda: chunk(*args, **kw)
     built = _ms(run)
+    rounds = chunk.phase_rounds
     libs = _build_variants(source, mod._SIGNATURES)
     saved = _build.load(source, mod._SIGNATURES)
     try:
@@ -179,13 +184,16 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     what = "single-utterance chunk (row 6)" if step else "batched chunk"
-    print(f"chunk probe [{card}] {what} bf16 B={B} T_in=128 {cs} steps: "
+    by_phase = (f"{name} {float(t):.2f}" + (
+        "" if i is None else f" ({rounds[i]} round{'s' * (rounds[i] != 1)})")
+        for name, t, i in zip(PHASES, phase_us, ITEM_PHASE))
+    print(f"chunk probe [{card}] {what} bf16 B={B} T_in={T} {cs} steps: "
           f"chunk "
           f"{built:.4f} ms as built, {traced:.4f} ms traced, {idle:.4f} ms "
           f"with its phases doing no work ({idle / (7 * cs) * 1e3:.2f} us a "
           f"barrier); a step {step_us:.2f} us; by phase, its barrier "
-          f"included (us, median over steps 2..{cs - 1}): " + ", ".join(
-              f"{name} {float(t):.2f}" for name, t in zip(PHASES, phase_us)))
+          f"included (us, median over steps 2..{cs - 1}): "
+          + ", ".join(by_phase))
     return 0
 
 

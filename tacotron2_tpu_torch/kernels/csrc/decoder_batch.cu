@@ -223,7 +223,9 @@ extern "C" {
 // to_mma_tiles), or null; with them, a bf16 chunk at the shapes
 // persistent_plan takes runs as one cooperative launch, using scratch
 // (decoder_chunk_scratch bytes), else the per-step launches of run<W>.
-// Returns cudaError_t.
+// rounds (host memory, PC_NPH ints, or null) gets the persistent launch's
+// rounds of items by phase (persistent_plan), zeros without one. Returns
+// cudaError_t.
 int decoder_chunk(int bf16, const void* pre1, const void* pre2, const void* w1,
                   const void* b1, const void* w2, const void* b2, const void* wq,
                   const void* k2, const void* v, const void* wpe, const void* bpe,
@@ -234,7 +236,9 @@ int decoder_chunk(int bf16, const void* pre1, const void* pre2, const void* w1,
                   void* len, void* a2, void* q, void* e, void* mel, void* gate,
                   void* align, void* scratch, int B, int T, int n, int p, int E,
                   int A, int D, int datt, int ks, int cs, int t0,
-                  float gate_logit, void* stream) {
+                  float gate_logit, void* stream, int* rounds) {
+  if (rounds)
+    for (int i = 0; i < PC_NPH; ++i) rounds[i] = 0;
   size_t need;
   int have;
   if (chunk_limits(T, n, p, E, A, D, datt, ks, &need, &have) != 0)
@@ -251,7 +255,7 @@ int decoder_chunk(int bf16, const void* pre1, const void* pre2, const void* w1,
   if (bf16 && w1f && w2f) {
     Persist P{};
     size_t smem = 0;
-    const int plan = persistent_plan<__nv_bfloat16>(c, &P, &smem);
+    const int plan = persistent_plan<__nv_bfloat16>(c, &P, &smem, rounds);
     if (plan < 0) return (int)cudaErrorInvalidDevice;
     if (plan == 0) {
       P.w1f = (const uint4*)w1f;

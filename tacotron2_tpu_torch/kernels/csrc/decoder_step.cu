@@ -290,7 +290,9 @@ extern "C" {
 // order (kernels/lstm_layout.py to_mma_tiles), or null; with them, a bf16
 // chunk at the shapes persistent_plan takes runs as one cooperative launch,
 // using scratch (decoder_step_scratch bytes), else the per-step launches
-// of run<W>. Returns cudaError_t.
+// of run<W>. rounds (host memory, PC_NPH ints, or null) gets the persistent
+// launch's rounds of items by phase, zeros without one. Returns
+// cudaError_t.
 int decoder_step_chunk(int bf16, const void* pre1, const void* pre2,
                        const void* w1, const void* b1, const void* w2,
                        const void* b2, const void* wq, const void* k2,
@@ -303,7 +305,9 @@ int decoder_step_chunk(int bf16, const void* pre1, const void* pre2,
                        void* e, void* mel, void* gate, void* align,
                        void* scratch, int T, int n, int p, int E, int A,
                        int D, int datt, int ks, int cs, int t0,
-                       float gate_logit, void* stream) {
+                       float gate_logit, void* stream, int* rounds) {
+  if (rounds)
+    for (int i = 0; i < PC_NPH; ++i) rounds[i] = 0;
   size_t need;
   int have;
   if (step_limits(T, n, p, E, A, D, datt, ks, &need, &have) != 0)
@@ -321,7 +325,7 @@ int decoder_step_chunk(int bf16, const void* pre1, const void* pre2,
              1, T, n, p, E, A, D, datt, ks, cs, t0, gate_logit};
     Persist P{};
     size_t smem = 0;
-    const int plan = persistent_plan<float>(pc, &P, &smem);
+    const int plan = persistent_plan<float>(pc, &P, &smem, rounds);
     if (plan < 0) return (int)cudaErrorInvalidDevice;
     if (plan == 0) {
       P.w1f = (const uint4*)w1f;

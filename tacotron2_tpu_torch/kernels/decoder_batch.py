@@ -47,6 +47,9 @@ from tacotron2_tpu_torch.utils.profiling import span
 NEG = -1e30       # additive attention mask (the TPU kernels' -inf stand-in)
 GATE_MASK = 1e3   # gate value of finished rows (reference model.py:495)
 _DEC_UNITS = 8    # hidden units per LSTM block in csrc/decoder_batch.cu
+# PC_NPH of csrc/persistent_chunk.cuh: the persistent chunk's phases of
+# items (prenet, query, energies, softmax and context, projection)
+N_ITEM_PHASES = 5
 # csrc/decoder_batch.cu's kernels, in the order of its chunk_smem
 _KERNELS = ("prenet_kernel", "lstm_kernel", "query_kernel", "energy_kernel",
             "softmax_ctx_kernel", "proj_kernel")
@@ -267,7 +270,7 @@ def _cell(g: torch.Tensor, c: torch.Tensor):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"decoder_chunk": [_I] + [_P] * 35 + [_I] * 11
-               + [ctypes.c_float, _P],
+               + [ctypes.c_float, _P, _P],
                "decoder_chunk_scratch": [_I] * 5 + [
                    ctypes.POINTER(ctypes.c_size_t)],
                "decoder_chunk_limits": [_I] * 8 + [
@@ -367,6 +370,7 @@ def decoder_chunk(fp: BatchDecoderParams, carry: ChunkCarry,
     nbytes = ctypes.c_size_t(0)
     lib.decoder_chunk_scratch(B, p, e, a, d, ctypes.byref(nbytes))
     scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    rounds = (ctypes.c_int * N_ITEM_PHASES)()
     status = lib.decoder_chunk(
         int(fp.w1.dtype == torch.bfloat16),
         *(x.data_ptr() for x in (fp.pre1, fp.pre2, fp.w1, fp.b1, fp.w2,
@@ -378,15 +382,27 @@ def decoder_chunk(fp: BatchDecoderParams, carry: ChunkCarry,
                                  lens, a2, q, energies, mel, gate, align,
                                  scratch)),
         B, T, n, p, e, a, d, datt, ks, cs, int(t0), float(gate_logit),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, rounds)
     _build.check(lib, status, "decoder_chunk")
     decoder_chunk.launches += 1
+    count_rounds(decoder_chunk, rounds)
     new = ChunkCarry(h1[cs % 2], c1, h2[cs % 2], c2, w, wc, ctx, prev,
                      fin[cs % 2], lens)
     return ChunkOut(mel, gate, align, new)
 
 
 decoder_chunk.launches = 0
+decoder_chunk.phase_rounds = (0,) * N_ITEM_PHASES
+decoder_chunk.rounds = 0
+
+
+def count_rounds(fn, rounds) -> None:
+    """Keep a chunk's rounds of items by phase (the persistent plan's:
+    prenet, query, energies, softmax and context, projection) on its
+    wrapper ``fn``, and the largest as ``fn.rounds``; 0 after a chunk that
+    took the per-step launches."""
+    fn.phase_rounds = tuple(rounds)
+    fn.rounds = max(fn.phase_rounds)
 
 
 # ------------------------------------------------- carry-level entry points

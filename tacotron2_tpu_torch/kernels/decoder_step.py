@@ -152,7 +152,7 @@ decoder_step_chunk_plain.calls = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"decoder_step_chunk": [_I] + [_P] * 35 + [_I] * 10
-               + [ctypes.c_float, _P],
+               + [ctypes.c_float, _P, _P],
                "decoder_step_scratch": [_I] * 4 + [
                    ctypes.POINTER(ctypes.c_size_t)],
                "decoder_step_limits": [_I] * 8 + [
@@ -208,6 +208,7 @@ def decoder_step_chunk(fp: FusedDecoderParams, carry: ChunkCarry,
     nbytes = ctypes.c_size_t(0)
     lib.decoder_step_scratch(p, e, a, d, ctypes.byref(nbytes))
     scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    rounds = (ctypes.c_int * db.N_ITEM_PHASES)()
     with torch.cuda.device(dev):
         status = lib.decoder_step_chunk(
             int(fp.w1.dtype == torch.bfloat16),
@@ -221,15 +222,18 @@ def decoder_step_chunk(fp: FusedDecoderParams, carry: ChunkCarry,
                                      lens, a2, q, energies, mel, gate,
                                      align, scratch)),
             T, n, p, e, a, d, datt, ks, cs, int(t0), float(gate_logit),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, rounds)
     _build.check(lib, status, "decoder_step_chunk")
     decoder_step_chunk.launches += 1
+    db.count_rounds(decoder_step_chunk, rounds)
     new = ChunkCarry(h1[cs % 2], c1, h2[cs % 2], c2, w, wc, ctx, prev,
                      fin[cs % 2], lens)
     return ChunkOut(mel, gate, align, new)
 
 
 decoder_step_chunk.launches = 0
+decoder_step_chunk.phase_rounds = (0,) * db.N_ITEM_PHASES
+decoder_step_chunk.rounds = 0
 
 
 # ------------------------------------------------- carry-level entry points

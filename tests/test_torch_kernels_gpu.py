@@ -615,13 +615,12 @@ def test_scan_forward_cuda_core_shapes_match_plain(cuda, cfg):
     assert max(errs.values()) <= SCAN_REL[torch.bfloat16], errs
 
 
-def persistent_case(device, B, cs, keep, gate_logit=1e30):
-    """A bf16 chunk of cs steps at T=37 from a zero carry (the narrow
-    widths of CFG): (args, kwargs)."""
+def persistent_case(device, B, cs, keep, gate_logit=1e30, T=37):
+    """A bf16 chunk of cs steps at T encoder positions from a zero carry
+    (the narrow widths of CFG): (args, kwargs)."""
     model = tm.Tacotron2(CFG, torch.Generator().manual_seed(0)).to(device)
     fp = db.pack_batch_decoder_params(model, torch.bfloat16)
     g = torch.Generator(device=device).manual_seed(2 + B)
-    T = 37
     mem = torch.randn(B, T, 128, generator=g, device=device) * 0.5
     proc = torch.randn(B, T, 128, generator=g, device=device) * 0.5
     lengths = torch.randint(1, T + 1, (B,), generator=g, device=device)
@@ -640,11 +639,13 @@ def persistent_case(device, B, cs, keep, gate_logit=1e30):
 @pytest.mark.gpu
 @pytest.mark.parametrize("keep", [False, True])
 @pytest.mark.parametrize("cs", [1, 64])
-@pytest.mark.parametrize("B", [1, 4, 8, 13, 21])
-def test_persistent_chunk_matches_plain(cuda, B, cs, keep):
+@pytest.mark.parametrize("B,T", [(1, 37), (4, 37), (8, 37), (13, 37),
+                                 (21, 37), (32, 37), (21, 192), (32, 192)])
+def test_persistent_chunk_matches_plain(cuda, B, T, cs, keep):
     """Row 5 at bf16, one persistent launch: every output and carry field
-    within DEC_REL, finished and lengths exactly."""
-    args, kw = persistent_case(cuda, B, cs, keep)
+    within DEC_REL, finished and lengths exactly. B=32 is the rows serving
+    pads to; at T=192 the energies take two rows an item."""
+    args, kw = persistent_case(cuda, B, cs, keep, T=T)
     got = db.decoder_chunk(*args, **kw)
     want = db.decoder_chunk_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -652,7 +653,7 @@ def test_persistent_chunk_matches_plain(cuda, B, cs, keep):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [8, 21])
+@pytest.mark.parametrize("B", [8, 21, 32])
 def test_persistent_chunk_latches_mid_chunk(cuda, B):
     """A gate threshold that some rows cross mid-chunk (the midpoint of the
     widest gap between the plain version's gate logits in their middle
@@ -685,6 +686,69 @@ def test_persistent_chunk_is_one_deterministic_launch(cuda):
     for x, y in zip((a.mel, a.gate, a.align, *a.carry),
                     (b.mel, b.gate, b.align, *b.carry)):
         assert torch.equal(x, y)
+
+
+def served_case(device, B, T, cs, keep):
+    """A bf16 chunk of cs steps at the default config's full width (the
+    served one), B rows of T encoder positions with seeded lengths, from a
+    zero carry: (args, kwargs)."""
+    from tacotron2_tpu_torch.config import create_config
+    cfg = create_config()
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(5)).to(device)
+    fp = db.pack_batch_decoder_params(model, torch.bfloat16)
+    g = torch.Generator(device=device).manual_seed(B + T)
+    mem = torch.randn(B, T, cfg.encoder_embedding_dim, generator=g,
+                      device=device) * 0.5
+    proc = torch.randn(B, T, cfg.attention_dim, generator=g,
+                       device=device) * 0.5
+    lengths = torch.randint(T // 2, T + 1, (B,), generator=g, device=device)
+    mask = torch.arange(T, device=device)[None] < lengths[:, None]
+    mem, proc, emask = db.attention_inputs(mem, proc, mask, torch.bfloat16)
+    n, p = fp.pre1.shape
+    a, d, e = (cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
+               cfg.encoder_embedding_dim)
+    z = lambda *s: torch.zeros(*s, device=device)
+    i32 = lambda: torch.zeros(B, dtype=torch.int32, device=device)
+    carry = db.ChunkCarry(z(B, a), z(B, a), z(B, d), z(B, d), z(B, T),
+                          z(B, T), z(B, e), z(B, n), i32(), i32())
+    kp = (None, None)
+    if keep:
+        kp = tuple((torch.rand(cs, B, p, generator=g, device=device) < 0.5
+                    ).float() for _ in range(2))
+    kw = dict(t0=4, chunk_steps=cs, gate_logit=1e30, kp1=kp[0], kp2=kp[1])
+    return (fp, carry, mem, proc, emask), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,keep", [(32, 64, False), (32, 128, True),
+                                      (32, 192, False), (24, 192, True),
+                                      (17, 128, False)])
+def test_persistent_chunk_at_served_widths(cuda, B, T, keep):
+    """Row 5 at the default config's full width, a 64-step chunk at the
+    rows serving pads to (and at 24 and 17, where groups hold 3 and 2 rows)
+    over the three text buckets: every item partition of every phase
+    (row groups of 2 to 4 in the prenet, query and projection, of 2 in the
+    energies at T=192 and in the softmax and context), every field within
+    DEC_REL, finished and lengths exactly."""
+    args, kw = served_case(cuda, B, T, 64, keep)
+    got = db.decoder_chunk(*args, **kw)
+    want = db.decoder_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_chunks_close(got, want, DEC_REL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_persistent_chunk_takes_one_round_a_phase(cuda):
+    """At B=32 and T_in 192 (where the energies took two rounds of
+    single-row items, and the other phases two to four) each phase of items
+    takes one round (``decoder_chunk.rounds``); at B=1 too (row 6)."""
+    args, kw = served_case(cuda, 32, 192, 2, False)
+    db.decoder_chunk(*args, **kw)
+    assert db.decoder_chunk.phase_rounds == (1,) * db.N_ITEM_PHASES
+    assert db.decoder_chunk.rounds == 1
+    args, kw = full_step_case(cuda, 192, 2, False)
+    ds.decoder_step_chunk(*args, **kw)
+    assert ds.decoder_step_chunk.rounds == 1
 
 
 # ------------------------------------------------------ slice 6: rows 3, 6
