@@ -15,20 +15,23 @@ on failure:
    H=256, bf16; B=8 and B=1 at T 128, 48 and 32), timed beside cuDNN's
    bidirectional LSTM, one launch a call (torch.profiler);
 4. decoder chunk kernel against its plain version at full width (T_in=128,
-   one 64-step chunk: B=8 bf16, again with prenet keep masks, once at fp32;
-   B=1 bf16; B=13 bf16 with keep masks), every output and carry field
-   within its own limit (DEC_REL), and the same comparison must reject the
-   kernel's output with its attention perturbed; a bf16 chunk must be one
-   launch of the persistent kernel (torch.profiler);
+   one 64-step bf16 chunk: B=8, again with prenet keep masks; B=1; B=13
+   with keep masks), every output and carry field within its own limit
+   (DEC_REL), and the same comparison must reject the kernel's output with
+   its attention perturbed; a chunk must be one launch of the persistent
+   kernel (torch.profiler);
 5. serving: ``BatchingSynthesizer(max_batch=8)`` at the default config with
    seeded random weights answers 16 requests in the 64 and 128 text
    buckets (bf16, max_steps=200); both kernels' launch counts must rise
-   and the plain versions must not run. Then a short fp32 run
-   (max_steps=32) against the plain path on the CPU;
+   and the plain versions must not run. Then fp32: the encoder kernel
+   over eight of those texts against its plain version on the CPU, and
+   ``BatchingSynthesizer``, ``StreamingSynthesizer`` and ``infer_fused``
+   refusing an fp32 config on the card (the decoder kernels take bf16
+   alone) with no launch and no plain version run;
 6. the three kernels of one utterance against their plain versions at full
-   width: the single-utterance decoder chunk (B=1; T_in 64, 128, 192; with
-   and without keep masks; chunks of 32 and 64; bf16 and fp32) field by
-   field (STEP_REL) with perturbed attention rejected, timed beside the
+   width: the single-utterance decoder chunk (B=1, bf16; T_in 64, 128,
+   192; with and without keep masks; chunks of 32 and 64) field by field
+   (STEP_REL) with perturbed attention rejected, timed beside the
    batched chunk's entry called at B=1, a bf16 chunk one launch of the
    persistent kernel (torch.profiler); the int8 product at the two decoder
    cells' shapes (B=1 and 8, 13 rows, and ragged shapes; x in fp32 and
@@ -46,8 +49,7 @@ on failure:
    offline result, ``stream_batch`` on four texts against the offline
    batch, and the front end on 16 waveforms of 6 s; each path's
    launch counts must show its kernel and no plain version may run on the
-   card; a breakdown by stage, a profile, and an fp32 ``infer_fused`` on the
-   card against the CPU plain path;
+   card; a breakdown by stage and a profile;
 8. the training kernels at bench.py's shape (B=128, T_in=128, bf16): the
    decoder forward scan and backward chain against their plain versions
    over 64 steps (also at T_in 64 and 192) and 512 steps, and at the
@@ -200,19 +202,16 @@ ENC_TOL = (3e-2, 5e-2)     # (atol, rtol): bf16 operand rounding flips
 # The two share every cast point and differ only in the order of fp32 sums,
 # which now and then flips the rounding of a bf16 operand. Each limit is
 # about ten times the worst reading of its field on the card, over this
-# script's chunks and those of tests/test_torch_kernels_gpu.py, which holds
-# the same table.
+# script's chunks and those of tests/test_torch_kernels_gpu.py, whose
+# table's bf16 row this is.
 DEC_FIELDS = ("mel", "gate", "align", "h1", "c1", "h2", "c2", "w", "wc",
               "ctx", "prev")
 DEC_REL = {
     torch.bfloat16: dict(mel=2e-2, gate=9e-2, align=2e-2, h1=2e-2, c1=2e-2,
                          h2=8e-3, c2=9e-3, w=2e-2, wc=3e-3, ctx=5e-3,
                          prev=2e-2),
-    torch.float32: dict(mel=6e-6, gate=4e-5, align=4e-6, h1=3e-6, c1=3e-6,
-                        h2=3e-6, c2=2e-6, w=3e-6, wc=3e-6, ctx=3e-6,
-                        prev=5e-6),
 }
-SERVE_TOL_FP32 = (1e-3, 1e-3)  # 32 fp32 steps, card against CPU plain path
+SERVE_TOL_FP32 = (1e-3, 1e-3)  # fp32 encoder, card against CPU plain path
 
 SHORT_TEXTS = [  # 64-symbol bucket
     "Hello world.",
@@ -430,29 +429,22 @@ def _chunk_inputs(model, cfg, dev, dtype, B, T):
     return mem, proc, emask, carry, g
 
 
-# csrc/decoder_batch.cu's kernels: the persistent chunk and the per-step
-# kernels of its first design (the fp32 chunk's)
-CHUNK_KERNELS = ("persistent_chunk_kernel", "prenet_kernel", "lstm_kernel",
-                 "query_kernel", "energy_kernel", "softmax_ctx_kernel",
-                 "proj_kernel")
+# csrc/decoder_batch.cu's kernel
+CHUNK_KERNELS = ("persistent_chunk_kernel",)
 
 
 def decoder_phase(model, cfg, dev, card):
-    """Row 5 at full width against its plain version: B=8 (bf16, bf16 with
-    keep masks, fp32), B=1 and B=13 with keep masks, one 64-step chunk each;
-    the kernel line's time at B=8 bf16, beside the per-step byte floor;
-    the chunk's CUDA kernels counted by torch.profiler."""
+    """Row 5 at full width against its plain version, bf16: B=8 (and with
+    keep masks), B=1 and B=13 with keep masks, one 64-step chunk each; the
+    kernel line's time at B=8, beside the per-step byte floor; the chunk's
+    CUDA kernels counted by torch.profiler."""
     T, cs = 128, 64
+    dtype = torch.bfloat16
+    limits = DEC_REL[dtype]
+    fp = db.pack_batch_decoder_params(model, dtype)
     results = {}
-    for dtype, B, keep in ((torch.bfloat16, 8, False),
-                           (torch.bfloat16, 8, True),
-                           (torch.float32, 8, False),
-                           (torch.bfloat16, 1, False),
-                           (torch.bfloat16, 13, True)):
-        label = (f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
-                 f"{'+keep' if keep else ''} B={B}")
-        limits = DEC_REL[dtype]
-        fp = db.pack_batch_decoder_params(model, dtype)
+    for B, keep in ((8, False), (8, True), (1, False), (13, True)):
+        label = f"bf16{'+keep' if keep else ''} B={B}"
         mem, proc, emask, carry, g = _chunk_inputs(model, cfg, dev,
                                                    dtype, B, T)
         kp = (None, None)
@@ -500,8 +492,7 @@ def decoder_phase(model, cfg, dev, card):
                            iters=2, warmup=1)
         nbytes, flops = _decoder_work(fp, B, T, cs, kp[0] is not None,
                                       cfg.attention_location_n_filters)
-        bound_ms, bound_by = bound(nbytes, flops, "float32"
-                                   if dtype == torch.float32 else "bfloat16")
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
         # what each step must touch whatever the kernel keeps: both LSTMs'
         # weights, memory and processed memory, read once a step
         step_b = (fp.w1.numel() * fp.w1.element_size()
@@ -522,15 +513,12 @@ def decoder_phase(model, cfg, dev, card):
     return {"name": "decoder_chunk", "route": "cuda",
             "source": "tacotron2_tpu_torch/kernels/csrc/decoder_batch.cu",
             "replaces": "tacotron2_tpu/kernels/decoder_batch.py:107",
-            "max_abs_err": max(results[k]["max_abs_err"] for k in results
-                               if not k.startswith("fp32")),
+            "max_abs_err": max(r["max_abs_err"] for r in results.values()),
             "tolerance": {"share_of_field_max": DEC_REL[torch.bfloat16]},
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "floor_ms": r["floor_ms"], "library_ms": None,
             "launches_per_chunk": per_chunk,
-            "fp32": {k: results["fp32 B=8"][k] for k in
-                     ("max_abs_err", "ms", "plain_ms", "bound_ms")},
             "B1": {k: results["bf16 B=1"][k] for k in
                    ("max_abs_err", "ms", "bound_ms", "floor_ms")},
             "B13_keep": {k: results["bf16+keep B=13"][k] for k in
@@ -746,33 +734,56 @@ def summarize_kernels(kernels, top: int) -> str:
 
 
 def fp32_phase(cfg, dev, card, seed):
-    """The serving path at fp32 for 32 steps: kernels on the card against
-    the plain versions on the CPU, same seeded weights and texts."""
+    """fp32 on the card, where only the encoder has a kernel: the encoder
+    (its fp32 path) over eight serving texts against its plain version on
+    the CPU, same seeded weights; then the serving, streaming and
+    single-utterance entry points must refuse an fp32 config on the card
+    (the decoder kernels take bf16 alone) before any launch, and no plain
+    decoder may run there."""
     cfg32 = cfg.replace(compute_dtype="float32")
     texts = SHORT_TEXTS[:4] + LONG_TEXTS[:4]
-    outs = {}
+    ids, lengths = tinfer.encode_texts(texts, cfg32)
+    memory = {}
+    launches = el.bilstm_forward.launches
     for device in (dev, torch.device("cpu")):
-        model = tm.Tacotron2(cfg32, torch.Generator().manual_seed(seed))
-        synth = BatchingSynthesizer(model, cfg32, max_batch=8, max_steps=32,
-                                    max_wait_ms=50.0, device=device)
+        model = tm.Tacotron2(cfg32, torch.Generator().manual_seed(seed)
+                             ).to(device).eval()
+        with torch.no_grad():
+            memory[device.type] = tm.encode(model, ids.to(device),
+                                            lengths.to(device), cfg32).cpu()
+    if el.bilstm_forward.launches != launches + 1:
+        fail(f"fp32 encoder: {el.bilstm_forward.launches - launches} "
+             f"launches of the encoder kernel, not 1")
+    err, ok = worst(memory["cuda"], memory["cpu"], SERVE_TOL_FP32)
+    if not ok:
+        fail(f"fp32 encoder: card and CPU plain path differ by {err}")
+    model = tm.Tacotron2(cfg32, torch.Generator().manual_seed(seed)).to(dev)
+    counted = (db.decoder_chunk, ds.decoder_step_chunk, el.bilstm_forward)
+    plain = (db.decoder_chunk_plain, ds.decoder_step_chunk_plain)
+    before = ([f.launches for f in counted], [f.calls for f in plain])
+    entries = {
+        "BatchingSynthesizer": lambda: BatchingSynthesizer(
+            model, cfg32, max_batch=8, device=dev).close(),
+        "StreamingSynthesizer": lambda: StreamingSynthesizer(
+            model, cfg32, device=dev),
+        "infer_fused": lambda: tm.infer_fused(model, ids[:1], lengths[:1],
+                                              cfg32, max_steps=32,
+                                              device=dev)}
+    for name, entry in entries.items():
         try:
-            outs[device.type] = synth.synthesize(texts)
-        finally:
-            synth.close()
-    err = 0.0
-    for text, (mg, ag, ng), (mc, ac, nc) in zip(texts, outs["cuda"],
-                                                 outs["cpu"]):
-        if ng != nc:
-            fail(f"fp32 {text!r}: {ng} frames on the card, {nc} on the CPU")
-        for a, b in ((mg, mc), (ag, ac)):
-            e, ok = worst(torch.from_numpy(a), torch.from_numpy(b),
-                          SERVE_TOL_FP32)
-            err = max(err, e)
-            if not ok:
-                fail(f"fp32 {text!r}: card and CPU plain path differ by {e}")
-    print(f"fp32 serving [{card}] 8 requests, 32 steps: kernels on the card "
-          f"against the plain path on the CPU, max |err| {err:.3e} (atol "
-          f"{SERVE_TOL_FP32[0]}, rtol {SERVE_TOL_FP32[1]})")
+            entry()
+        except ValueError as e:
+            if "take bf16" not in str(e):
+                fail(f"fp32 {name} on the card: {e}")
+        else:
+            fail(f"fp32 {name} ran on the card")
+    after = ([f.launches for f in counted], [f.calls for f in plain])
+    if after != before:
+        fail(f"fp32 refusals: launches and plain calls {before} -> {after}")
+    print(f"fp32 [{card}] encoder over 8 texts: the card against the plain "
+          f"path on the CPU, max |err| {err:.3e} (atol {SERVE_TOL_FP32[0]}, "
+          f"rtol {SERVE_TOL_FP32[1]}); {', '.join(entries)} refuse fp32 on "
+          f"the card, no launch, no plain decoder")
 
 
 # ------------------------------------------------- one utterance to audio
@@ -780,14 +791,12 @@ def fp32_phase(cfg, dev, card, seed):
 # Single-utterance decoder chunk, kernel against its plain version: as
 # DEC_REL, each field's largest |err| as a share of its largest |value|,
 # limits about ten times the worst reading on the card over this script's
-# chunks and those of tests/test_torch_kernels_gpu.py (the same table).
+# chunks and those of tests/test_torch_kernels_gpu.py (its table's bf16
+# row).
 STEP_REL = {
     torch.bfloat16: dict(mel=1e-2, gate=3e-1, align=2e-2, h1=1e-2, c1=1e-2,
                          h2=5e-3, c2=5e-3, w=2e-2, wc=2e-3, ctx=3e-3,
                          prev=1e-2),
-    torch.float32: dict(mel=2e-5, gate=2e-4, align=2e-5, h1=1e-5, c1=1e-5,
-                        h2=1e-5, c2=1e-5, w=2e-5, wc=1e-5, ctx=2e-5,
-                        prev=2e-5),
 }
 # int8 product: bf16 x int8 products are exact in fp32, the sums run in
 # another order: largest |err| as a share of the output's largest |value|
@@ -806,31 +815,28 @@ UTTERANCE = LONG_TEXTS[1]   # 128-symbol bucket
 UTTERANCE_STEPS = 200
 
 
-# csrc/decoder_step.cu's kernels: the persistent chunk and the per-step
-# kernels of its first design (the fp32 chunk's)
-STEP_KERNELS = ("persistent_chunk_kernel", "prenet_kernel", "lstm_row_kernel",
-                "query_kernel", "energy_kernel", "softmax_ctx_kernel",
-                "proj_kernel")
+# csrc/decoder_step.cu's kernel
+STEP_KERNELS = ("persistent_chunk_kernel",)
 
 
 def step_phase(model, cfg, dev, card):
-    """Row 6 at full width, B=1: every shape class against the plain
+    """Row 6 at full width, B=1, bf16: every shape class against the plain
     version; timed at T_in=128, one 64-step chunk, beside the batched
     chunk's entry (row 5) called at B=1 on the same inputs, with its
-    per-step byte floor; a bf16 chunk must be one launch of the persistent
+    per-step byte floor; a chunk must be one launch of the persistent
     kernel (torch.profiler)."""
     n = cfg.n_mel_channels * cfg.n_frames_per_step
     a, d, e = (cfg.attention_rnn_dim, cfg.decoder_rnn_dim,
                cfg.encoder_embedding_dim)
-    cases = [(torch.bfloat16, T, cs, keep) for T in (64, 128, 192)
-             for cs in (32, 64) for keep in (False, True)]
-    cases += [(torch.float32, 128, 64, False), (torch.float32, 192, 32, True)]
-    worst, timed = {}, {}
-    for dtype, T, cs, keep in cases:
-        limits = STEP_REL[dtype]
-        label = (f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} T_in={T} "
-                 f"chunk={cs}{' keep' if keep else ''}")
-        cd = None if dtype == torch.float32 else dtype
+    dtype = cd = torch.bfloat16
+    limits = STEP_REL[dtype]
+    fp = ds.pack_decoder_params(model, dtype)
+    fpb = db.pack_batch_decoder_params(model, dtype)
+    cases = [(T, cs, keep) for T in (64, 128, 192) for cs in (32, 64)
+             for keep in (False, True)]
+    worst = {}
+    for T, cs, keep in cases:
+        label = f"bf16 T_in={T} chunk={cs}{' keep' if keep else ''}"
         g = torch.Generator(device=dev).manual_seed(31 + T + cs)
         text = torch.randint(1, cfg.n_symbols, (1, T), generator=g,
                              device=dev)
@@ -838,7 +844,6 @@ def step_phase(model, cfg, dev, card):
         memory = tm.encode(model, text, lengths, cfg, compute_dtype=cd)
         processed = tm.processed_memory_of(model, memory, cd)
         mask = torch.arange(T, device=dev)[None] < lengths[:, None]
-        fp = ds.pack_decoder_params(model, dtype)
         inputs = ds.attention_inputs(memory, processed, mask)
         z = lambda *s: torch.zeros(*s, device=dev)
         i32 = lambda: torch.zeros(1, dtype=torch.int32, device=dev)
@@ -863,77 +868,66 @@ def step_phase(model, cfg, dev, card):
                      f"with its plain version on {name}: max |err| {err}, "
                      f"{r:.3e} of the field's largest value, beyond "
                      f"{limits[name]}")
-            key = (dtype, name)
-            worst[key] = max(worst.get(key, (0.0, 0.0)), (r, err))
+            worst[name] = max(worst.get(name, (0.0, 0.0)), (r, err))
         for name in ("fin", "lens"):
             if not torch.equal(getattr(got.carry, name),
                                getattr(want.carry, name)):
                 fail(f"single-utterance decoder kernel ({label}): {name} "
                      f"differs from the plain version")
-        if (dtype, T, cs, keep) == (torch.bfloat16, 128, 64, False):
-            _check_catches(got, want, limits)
         if (T, cs, keep) == (128, 64, False):
-            if dtype == torch.bfloat16:
-                names = profiled_kernels(lambda: ds.decoder_step_chunk(
-                    *args, **kw))
-                chunk = [k for k in names if k in STEP_KERNELS]
-                if chunk != ["persistent_chunk_kernel"]:
-                    fail(f"a bf16 single-utterance chunk launched {chunk}, "
-                         f"not one persistent kernel")
-                per_chunk = {"kernels": len(chunk),
-                             "set_up": len(names) - len(chunk)}
-                print(f"decoder step [{card}] {label} under torch.profiler: "
-                      f"{len(chunk)} launch of {chunk[0]} (the first design "
-                      f"launched 7 x {cs} = {7 * cs}); set-up: "
-                      f"{len(names) - len(chunk)} ("
-                      f"{', '.join(sorted(set(names) - set(chunk)))})")
+            _check_catches(got, want, limits)
+            names = profiled_kernels(lambda: ds.decoder_step_chunk(
+                *args, **kw))
+            chunk = [k for k in names if k in STEP_KERNELS]
+            if chunk != ["persistent_chunk_kernel"]:
+                fail(f"a bf16 single-utterance chunk launched {chunk}, "
+                     f"not one persistent kernel")
+            per_chunk = {"kernels": len(chunk),
+                         "set_up": len(names) - len(chunk)}
+            print(f"decoder step [{card}] {label} under torch.profiler: "
+                  f"{len(chunk)} launch of {chunk[0]} (the first design "
+                  f"launched 7 x {cs} = {7 * cs}); set-up: "
+                  f"{len(names) - len(chunk)} ("
+                  f"{', '.join(sorted(set(names) - set(chunk)))})")
             ms = cuda_ms(lambda: ds.decoder_step_chunk(*args, **kw), iters=5)
             plain_ms = cuda_ms(lambda: ds.decoder_step_chunk_plain(
                 *args, **kw), iters=2, warmup=1)
-            fpb = db.pack_batch_decoder_params(model, dtype)
             inb = db.attention_inputs(memory, processed, mask, dtype)
             batched_ms = cuda_ms(lambda: db.decoder_chunk(
                 fpb, carry, *inb, **kw), iters=5)
             nbytes, flops = _decoder_work(
                 fp, 1, T, cs, False, cfg.attention_location_n_filters,
                 att_size=4)
-            bound_ms, bound_by = bound(nbytes, flops, "float32" if dtype ==
-                                       torch.float32 else "bfloat16")
+            bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
             # what each step must touch whatever the kernel keeps: both
             # LSTMs' weights, memory and processed memory, once a step
             size = lambda x: x.numel() * x.element_size()
             step_b = (size(fp.w1) + size(fp.w2) + size(inputs[0])
                       + size(inputs[1]))
             floor_ms = cs * step_b / HBM_BYTES_PER_S * 1e3
-            timed[dtype] = dict(ms=ms, plain_ms=plain_ms,
-                                batched_entry_at_b1_ms=batched_ms,
-                                bound_ms=bound_ms, bound_by=bound_by,
-                                floor_ms=floor_ms)
+            timed = dict(ms=ms, plain_ms=plain_ms,
+                         batched_entry_at_b1_ms=batched_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         floor_ms=floor_ms)
             print(f"decoder step [{card}] {label} B=1: kernel {ms:.4f} ms "
                   f"({ms / cs * 1e3:.2f} us a step), plain {plain_ms:.4f} ms,"
                   f" the batched chunk's entry at B=1 {batched_ms:.4f} ms, "
                   f"bound {bound_ms:.5f} ms ({bound_by}); per-step floor "
                   f"{step_b / 1e6:.1f} MB, {floor_ms:.4f} ms at the HBM rate")
-    for dtype in (torch.bfloat16, torch.float32):
-        print(f"decoder step [{card}] "
-              f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}, worst over "
-              f"{sum(c[0] == dtype for c in cases)} shape classes: max |err| "
-              f"by field, as a share of the field's largest |value| (limit): "
-              + ", ".join(f"{k} {worst[(dtype, k)][0]:.2e} "
-                          f"({STEP_REL[dtype][k]})" for k in DEC_FIELDS))
-    r = timed[torch.bfloat16]
+    print(f"decoder step [{card}] bf16, worst over {len(cases)} shape "
+          f"classes: max |err| by field, as a share of the field's largest "
+          f"|value| (limit): " + ", ".join(
+              f"{k} {worst[k][0]:.2e} ({limits[k]})" for k in DEC_FIELDS))
     return {"name": "decoder_step_chunk", "route": "cuda",
             "source": "tacotron2_tpu_torch/kernels/csrc/decoder_step.cu",
             "replaces": "tacotron2_tpu/kernels/decoder_step.py:198",
-            "max_abs_err": max(v[1] for (dt, _), v in worst.items()
-                               if dt == torch.bfloat16),
-            "tolerance": {"share_of_field_max": STEP_REL[torch.bfloat16]},
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "floor_ms": r["floor_ms"], "library_ms": None,
-            "batched_entry_at_b1_ms": r["batched_entry_at_b1_ms"],
-            "launches_per_chunk": per_chunk,
-            "fp32": timed[torch.float32]}
+            "max_abs_err": max(v[1] for v in worst.values()),
+            "tolerance": {"share_of_field_max": limits},
+            **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "floor_ms")},
+            "library_ms": None,
+            "batched_entry_at_b1_ms": timed["batched_entry_at_b1_ms"],
+            "launches_per_chunk": per_chunk}
 
 
 def int8_phase(dev, card):
@@ -1414,30 +1408,6 @@ def utterance_breakdown(model, voc, hg, cfg, dev, card, text, lengths):
     torch.cuda.synchronize()
     print(f"utterance profile [{card}] bf16 B=1 T_in=128 64 steps: "
           + profile_kernels(run, top=10))
-
-
-def fp32_utterance_phase(cfg, dev, card, seed):
-    """``infer_fused`` at fp32 for 32 steps: the kernels on the card against
-    the plain versions on the CPU, same seeded weights and text."""
-    cfg32 = cfg.replace(compute_dtype="float32")
-    text, lengths = tinfer.encode_texts([UTTERANCE], cfg32)
-    outs = {}
-    for device in (dev, torch.device("cpu")):
-        model = tm.Tacotron2(cfg32, torch.Generator().manual_seed(seed)
-                             ).to(device)
-        outs[device.type] = tm.infer_fused(model, text, lengths, cfg32,
-                                           max_steps=32, device=device)
-    err = 0.0
-    for f in ("mel_postnet", "alignments", "gate_energies"):
-        e, ok = worst(getattr(outs["cuda"], f).cpu(), getattr(outs["cpu"], f),
-                      SERVE_TOL_FP32)
-        err = max(err, e)
-        if not ok:
-            fail(f"fp32 infer_fused: {f} on the card and on the CPU plain "
-                 f"path differ by {e}")
-    print(f"fp32 utterance [{card}] infer_fused, 32 steps: kernels on the "
-          f"card against the plain path on the CPU, max |err| {err:.3e} "
-          f"(atol {SERVE_TOL_FP32[0]}, rtol {SERVE_TOL_FP32[1]})")
 
 
 # ------------------------------------------------------------ training
@@ -4283,7 +4253,6 @@ def main() -> int:
     int8 = int8_phase(dev, card)
     mel = mel_phase(cfg, dev, card)
     utt = utterance_phase(cfg, dev, card, seed)
-    fp32_utterance_phase(cfg, dev, card, seed)
     scan_fwd, scan_bwd = scan_phase(model, cfg, dev, card)
     enc_bwd = encoder_train_phase(model, dev, card, enc)
     del model

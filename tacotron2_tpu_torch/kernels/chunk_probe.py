@@ -153,15 +153,15 @@ def main(argv=None) -> int:
     step = bool(argv) and argv[0] == "step"
     B = 1 if step else int(argv[0]) if argv else 8
     T = int(argv[1]) if len(argv) > 1 else 128
-    mod, source = (ds, "decoder_step") if step else (db, "decoder_batch")
+    source = "decoder_step" if step else "decoder_batch"
     dev = torch.device("cuda")
     args, kw = _chunk_args(B, T, dev, step)
     chunk = ds.decoder_step_chunk if step else db.decoder_chunk
     run = lambda: chunk(*args, **kw)
     built = _ms(run)
     rounds = chunk.phase_rounds
-    libs = _build_variants(source, mod._SIGNATURES)
-    saved = _build.load(source, mod._SIGNATURES)
+    libs = _build_variants(source, db._SIGNATURES)
+    saved = _build.load(source, db._SIGNATURES)
     try:
         _build._LIBS[source] = libs["idle"]
         idle = _ms(run)

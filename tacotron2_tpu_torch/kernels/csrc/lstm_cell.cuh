@@ -116,11 +116,9 @@ inline size_t gate_product_smem(int K) {
 // out[c] = sum_{k<K} x[k] * w[k*ld + c0 + c], by NT threads laid out as
 // COLS columns x NT/COLS slices of K, T2_LOADS loads in flight per thread.
 // x and out in shared memory; red is NT floats of shared scratch. The
-// slices' sums are added in slice order by one thread a column, or, with
-// TREE (COLS < 32), first across each warp's lanes by shuffles and then in
-// warp order: fewer serial adds where COLS is narrow. Ends with
+// slices' sums are added in slice order by one thread a column. Ends with
 // __syncthreads.
-template <typename W, int NT, int COLS, bool TREE = false>
+template <typename W, int NT, int COLS>
 __device__ __forceinline__ void block_matvec(const float* x, int K,
                                              const W* __restrict__ w,
                                              size_t ld, int c0, int ncols,
@@ -142,26 +140,12 @@ __device__ __forceinline__ void block_matvec(const float* x, int K,
     }
     for (; k < K; k += KSPLIT) acc = fmaf(x[k], to_f<W>(wc[(size_t)k * ld]), acc);
   }
-  if constexpr (TREE) {
-    static_assert(COLS < 32 && 32 % COLS == 0, "TREE: lanes share columns");
-    for (int o = COLS; o < 32; o <<= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane < COLS) red[warp * COLS + lane] = acc;
-    __syncthreads();
-    if (threadIdx.x < ncols) {
-      float s = 0.0f;
-      for (int j = 0; j < NT / 32; ++j) s += red[j * COLS + threadIdx.x];
-      out[threadIdx.x] = s;
-    }
-  } else {
-    red[threadIdx.x] = acc;
-    __syncthreads();
-    if (ks == 0 && cl < ncols) {
-      float s = 0.0f;
-      for (int j = 0; j < KSPLIT; ++j) s += red[j * COLS + cl];
-      out[cl] = s;
-    }
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  if (ks == 0 && cl < ncols) {
+    float s = 0.0f;
+    for (int j = 0; j < KSPLIT; ++j) s += red[j * COLS + cl];
+    out[cl] = s;
   }
   __syncthreads();
 }

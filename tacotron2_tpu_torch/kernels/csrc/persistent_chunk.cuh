@@ -23,9 +23,10 @@
 #include <type_traits>
 
 #include "attention.cuh"
-#include "decoder_common.cuh"
 #include "lstm_cell.cuh"
 #include "mma.cuh"
+
+#define GATE_MASK 1e3f   // gate value of finished rows (reference model.py:495)
 
 struct Chunk {
   // weights (W unless noted)
@@ -52,8 +53,8 @@ struct Chunk {
 // (grid_sync) stands where a launch boundary stood between the seven
 // phases of a step. Every block reaches every barrier of every step,
 // latched rows included. The prenet, query, softmax and context, and
-// projection phases take the per-step kernels' arithmetic over (row
-// group, column block) items, which the blocks share out; at AT = bf16 the
+// projection phases are matrix-vector products over (row group, column
+// block) items, which the blocks share out; at AT = bf16 the
 // energies are an im2col tensor-core product over (row group, 32
 // positions) items, as the training scan rebuilds them, at AT = float an
 // fp32 sum over (row, PC_EP positions) items; the LSTM phases are
@@ -93,15 +94,15 @@ struct Chunk {
 // HBM3 at 700 W a barrier alone costs ~1.6 us and a phase 3-6 us with its
 // barrier at B <= 8; at B = 32 each LSTM phase ~13 us, the others 4.6-7.4
 // (kernels/chunk_probe.py measures them). Fewer phases, not fewer bytes,
-// is what moves it. At B = 1 (row 6) the same holds: the step
-// barely computes, and its seven launches a step of the first design
-// become seven grid barriers.
+// is what moves it. At B = 1 (row 6) the same holds: the step barely
+// computes.
 
 #define PC_THREADS 512
 #define PC_WARPS (PC_THREADS / 32)
 #define PC_UG 4         // hidden units per unit group (one m16 tile)
 #define PC_UMAX 2       // unit groups a block owns in each LSTM
 #define PC_NBMAX 4      // n8 tiles of rows: B <= 32
+#define PC_BMAX (8 * PC_NBMAX)  // rows one launch takes
 #define PC_ET 32        // positions per bf16 energy item (two m16 tiles)
 #define PC_EP 4         // positions per fp32 energy item, 128 threads each
 #define PC_KC 64        // im2col depth of the energies: 2 ks taps, padded
@@ -127,6 +128,12 @@ __host__ __device__ constexpr int pc_rm(int cap, int NB) {
   return cap < NB ? cap : NB;
 }
 
+// An LSTM's input depth in whole k16 steps. The pack pads [wi ; wh] with
+// zero rows to it (kernels/decoder_batch.py), and X's columns past the
+// inputs stay zero: the scratch is zeroed before each launch and no phase
+// writes them.
+__host__ __device__ constexpr int pc_depth(int k) { return (k + 15) / 16 * 16; }
+
 // Unit groups whose LSTM partials share the buffer at once: one at NB = 4,
 // where both groups' (64 KB) would push the decoder LSTM's weights (160 KB
 // at the default widths) out of shared memory.
@@ -139,7 +146,8 @@ struct Persist {
   const uint4 *w1f, *w2f;  // (H / PC_UG, K / 16, 32 lanes) x 16 bytes
   bf16 *x1, *x2;           // (2, Bp, K1), (2, Bp, K2): X by step parity
   unsigned* bar;           // grid barrier: the count of arrivals
-  int Bp, K1, K2, U;       // U unit groups a block owns in each LSTM
+  int Bp, K1, K2, U;       // K1, K2: the input depths (pc_depth); U unit
+                           //   groups a block owns in each LSTM
   int res1, res2;          // LSTM weights resident in shared memory
   int off2, offk, offs;    // bytes: w2's resident copy, K2 and v, the
                            //   phase scratch
@@ -179,11 +187,12 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
 // (each row its own matrix: the context's memory), else w (one matrix for
 // all rows, each weight read once for all of them). Rows from nr on hold
 // anything: their sums are left out, and PERROW reads row nr - 1 for them.
-// block_matvec's layout and order of sums: COLS columns x PC_THREADS / COLS
-// slices of K, T2_LOADS loads in flight a thread, each row's sum in k order
-// within a thread, then the slices in order (with TREE across each warp's
-// lanes first, then in warp order), so at RM = 1 the bits are
-// block_matvec's. red: RM * PC_THREADS floats. Ends with __syncthreads.
+// Layout and order of sums: COLS columns x PC_THREADS / COLS slices of K,
+// T2_LOADS loads in flight a thread, each row's sum in k order within a
+// thread, then the slices in order, or with TREE (COLS < 32) first across
+// each warp's lanes by shuffles and then in warp order: fewer serial adds
+// where COLS is narrow. Without TREE at RM = 1 the bits are block_matvec's.
+// red: RM * PC_THREADS floats. Ends with __syncthreads.
 template <typename W, int RM, int COLS, bool TREE, bool PERROW>
 __device__ __forceinline__ void pc_matvec(const float* x, int K,
                                           const W* __restrict__ w,
@@ -280,9 +289,8 @@ __device__ void pc_reduce(float (&v)[RM], float* red, bool is_max) {
   __syncthreads();
 }
 
-// The prenet, query and projection items: the arithmetic of
-// decoder_common.cuh's kernels over (row group, column block) items, rows
-// r0 .. r0 + nr - 1 (nr <= RM), with narrow column blocks and
+// The prenet, query and projection items: (row group, column block) items,
+// rows r0 .. r0 + nr - 1 (nr <= RM), with narrow column blocks and
 // block_matvec's TREE sums. Values other blocks write during the launch
 // (prev, h1, h2, ctx, the latch) are read through plain pointers, never the
 // read-only path.
@@ -584,13 +592,12 @@ __device__ __forceinline__ void pc_energy(
 }
 
 // Energies of PC_EP positions from t0 of row `row` with the
-// single-utterance TPU kernel's cast points (energy_kernel<W, float>): the
-// location term in fp32, from the fp32 K2 and the unrounded w and w_cum
-// windows, q and proc in fp32, only tanh's output rounded to bf16 before
-// the v-product. Thread i takes position i / 128 and the columns
-// i % 128 + 128 j; each position's 4 warp sums are added in warp order.
-// k2s: K2 (ks, 2, D) fp32, resident; vs: v in fp32. sm: 2 (PC_EP + ks - 1)
-// + PC_WARPS floats.
+// single-utterance TPU kernel's cast points: the location term in fp32,
+// from the fp32 K2 and the unrounded w and w_cum windows, q and proc in
+// fp32, only tanh's output rounded to bf16 before the v-product. Thread i
+// takes position i / 128 and the columns i % 128 + 128 j; each position's
+// 4 warp sums are added in warp order. k2s: K2 (ks, 2, D) fp32, resident;
+// vs: v in fp32. sm: 2 (PC_EP + ks - 1) + PC_WARPS floats.
 __device__ __forceinline__ void pc_energy_f32(
     const float* q, const float* w, const float* wc, const float* k2s,
     const float* vs, const float* __restrict__ proc, float* e, int T, int D,
@@ -866,30 +873,64 @@ persistent_chunk_kernel(Persist P) {
   }
 }
 
+// Why persistent_plan refuses a shape, negated in its answer; the words
+// for each are pc_refusal's.
+enum {
+  PC_ROWS = 1,  // more rows than one launch takes
+  PC_UNITS,     // an LSTM width not in unit groups
+  PC_ATT,       // the attention width
+  PC_TAPS,      // the location kernel size
+  PC_WIDE,      // more than PC_UMAX unit groups a block
+  PC_SMEM,      // the phase scratch beyond a block's shared memory
+};
+
+static_assert(PC_BMAX == 32 && PC_UG == 4 && PC_KC == 64 &&
+                  PC_UMAX * PC_UG == 8,
+              "the limits pc_refusal's words give");
+
+static const char* pc_refusal(int why) {
+  switch (why) {
+    case PC_ROWS: return "more rows than one persistent launch takes (32)";
+    case PC_UNITS: return "LSTM widths must be multiples of 4";
+    case PC_ATT: return "attention width must be a multiple of 16, at most 128";
+    case PC_TAPS: return "location kernel size must be odd, at most 31";
+    case PC_WIDE:
+      return "LSTM widths must be at most 8 units a multiprocessor";
+    case PC_SMEM:
+      return "the persistent chunk's phase scratch exceeds a block's shared "
+             "memory";
+  }
+  return "unknown refusal";
+}
+
 // The persistent kernel's plan at these shapes: 0 and the grid, scratch
-// layout and shared memory when it takes them (bf16 weights, B <= 32 rows,
-// LSTM widths in unit groups, depths in k16 steps, at most PC_UMAX groups a
-// block, an attention width in 16s up to 128, at most PC_KC / 2 taps),
-// else 1 (the caller's per-step launches take the chunk); < 0 a device
-// query failed. With the plan, rounds (if not null) gets the rounds of
-// items each of the PC_NPH phases takes: ceil(items / grid).
+// layout and shared memory (*smem) when it takes them (B <= PC_BMAX rows,
+// LSTM widths in unit groups, at most PC_UMAX groups a block, an attention
+// width in 16s up to 128, an odd number of taps up to PC_KC / 2); else
+// -PC_ROWS .. -PC_SMEM (at -PC_SMEM, *smem is the bytes the phase scratch
+// needs); a cudaError_t (> 0) when a device query failed. *optin gets the
+// shared memory a block may use. With the plan, rounds (if not null) gets
+// the rounds of items each of the PC_NPH phases takes: ceil(items / grid).
 template <typename AT>
 static int persistent_plan(const Chunk& c, Persist* P, size_t* smem,
-                           int* rounds) {
-  const int K1 = c.p + c.E + c.A, K2 = c.A + c.E + c.D;
-  if (c.B > 8 * PC_NBMAX || c.A % PC_UG || c.D % PC_UG || K1 % 16 ||
-      K2 % 16 || c.datt % 16 || c.datt > 128 || 2 * c.ks > PC_KC)
-    return 1;
-  int dev, sms, optin;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return -1;
+                           int* optin, int* rounds) {
+  const int K1 = pc_depth(c.p + c.E + c.A), K2 = pc_depth(c.A + c.E + c.D);
+  if (c.B > PC_BMAX) return -PC_ROWS;
+  if (c.A % PC_UG || c.D % PC_UG) return -PC_UNITS;
+  if (c.datt % 16 || c.datt > 128) return -PC_ATT;
+  if (c.ks % 2 == 0 || 2 * c.ks > PC_KC) return -PC_TAPS;
+  int dev, sms;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(
+           optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess)
+    return (int)err;
   const int groups = (c.A > c.D ? c.A : c.D) / PC_UG;
   const int U = (groups + sms - 1) / sms;
-  if (U > PC_UMAX) return 1;
+  if (U > PC_UMAX) return -PC_WIDE;
   const int NB = (c.B + 7) / 8;
   // Row groups: each phase's blocks a row, and the fewest rows an item
   // that fit its items in one round of the grid, up to what an item holds
@@ -927,12 +968,13 @@ static int persistent_plan(const Chunk& c, Persist* P, size_t* smem,
   scratch = scratch * sizeof(float) + k2b;
   const size_t w1b = (size_t)U * K1 / 16 * 512, w2b = (size_t)U * K2 / 16 * 512;
   int res1 = 0, res2 = 0;
-  if (w1b + w2b + scratch <= (size_t)optin) {
+  if (w1b + w2b + scratch <= (size_t)*optin) {
     res1 = res2 = 1;
-  } else if (w2b + scratch <= (size_t)optin) {
+  } else if (w2b + scratch <= (size_t)*optin) {
     res2 = 1;
-  } else if (scratch > (size_t)optin) {
-    return 1;
+  } else if (scratch > (size_t)*optin) {
+    *smem = scratch;
+    return -PC_SMEM;
   }
   P->c = c;
   P->K1 = K1, P->K2 = K2, P->U = U, P->Bp = NB * 8;
@@ -949,10 +991,29 @@ static int persistent_plan(const Chunk& c, Persist* P, size_t* smem,
 }
 
 // Bytes of scratch the persistent kernel takes: the barrier, then X1 and
-// X2 for both step parities, rows padded to whole n8 tiles.
+// X2 for both step parities, rows padded to whole n8 tiles and the input
+// depths K1, K2 to whole k16 steps.
 static size_t persistent_scratch(int B, int K1, int K2) {
   const size_t Bp = (B + 7) / 8 * 8;
-  return PC_XOFF + 2 * Bp * (K1 + K2) * sizeof(bf16);
+  return PC_XOFF + 2 * Bp * (pc_depth(K1) + pc_depth(K2)) * sizeof(bf16);
+}
+
+// persistent_plan's answer at these shapes, without a launch: 0, a
+// refusal (< 0; at -PC_SMEM *need is the phase scratch's bytes, else 0) or
+// a failed device query's cudaError_t; *have gets the shared memory a
+// block may use.
+template <typename AT>
+static int persistent_limits(int B, int T, int n, int p, int E, int A,
+                             int D, int datt, int ks, size_t* need,
+                             int* have) {
+  Chunk c{};
+  c.B = B, c.T = T, c.n = n, c.p = p, c.E = E, c.A = A, c.D = D;
+  c.datt = datt, c.ks = ks;
+  Persist P{};
+  *need = 0;
+  const int plan = persistent_plan<AT>(c, &P, need, have, nullptr);
+  if (plan == 0) *need = 0;
+  return plan;
 }
 
 template <int NB, typename AT>
@@ -994,4 +1055,29 @@ static cudaError_t run_persistent(Persist& P, size_t smem, void* scratch,
     case 3: return launch_persistent<3, AT>(P, smem, s);
     default: return launch_persistent<4, AT>(P, smem, s);
   }
+}
+
+// Runs the chunk c as one cooperative launch, from the LSTM weights in
+// fragment order (w1f, w2f) and scratch (persistent_scratch bytes): 0, a
+// cudaError_t, or the plan's refusal (< 0). rounds (host memory, PC_NPH
+// ints, or null) gets the launch's rounds of items by phase
+// (persistent_plan), zeros without one.
+template <typename AT>
+static int persistent_chunk(const Chunk& c, const void* w1f, const void* w2f,
+                            void* scratch, cudaStream_t s, int* rounds) {
+  if (rounds)
+    for (int i = 0; i < PC_NPH; ++i) rounds[i] = 0;
+  Persist P{};
+  size_t smem = 0;
+  int optin = 0;
+  const int plan = persistent_plan<AT>(c, &P, &smem, &optin, rounds);
+  if (plan != 0) return plan;
+  P.w1f = (const uint4*)w1f;
+  P.w2f = (const uint4*)w2f;
+  return (int)run_persistent<AT>(P, smem, scratch, s);
+}
+
+// A C entry's status as words: a cudaError_t's, or the plan's refusal's.
+static const char* pc_error_string(int err) {
+  return err < 0 ? pc_refusal(-err) : cudaGetErrorString((cudaError_t)err);
 }

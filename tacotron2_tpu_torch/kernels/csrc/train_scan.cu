@@ -8,7 +8,7 @@
 //                   -> c1, h1, and h1d = h1 * keep_att * 1/(1-p_att)
 //   query           q = h1d @ wq
 //   attention       energies, masked softmax -> w_t, w_cum += w_t, ctx_t
-//                   (attention.cuh, the kernels of the serving chunk)
+//                   (attention.cuh)
 //   decoder LSTM    g2 = [h1d ; ctx_t ; h2_{t-1}] @ w2 + b2 -> c2, h2d
 // and stores ga, gd, att_h (= h1d), dec_h (= h2d) in the operand type W and
 // att_c, dec_c, ctx, w in fp32 -- the eight stacks of decoder_vjp
@@ -51,12 +51,12 @@
 // all of them, so each weight element is read once a step), the query is
 // one tc_product, and the energies are rebuilt as an im2col bf16 mma
 // product (fwd_energy_kernel, the backward's attn_tiles_kernel arithmetic);
-// the softmax and context stay the serving chunk's kernel (see the
+// the softmax and context stay attention.cuh's kernel (see the
 // "forward, bf16" section). At fp32 (the step check) and at bf16 shapes
 // outside that range, the first design stays: scan_lstm_kernel (blocks own
 // TS_UNITS hidden units and all four gate columns x 8 rows, weights
-// block-major, products on CUDA cores in fp32), the query, the serving
-// chunk's energy and softmax/context kernels, scan_lstm_kernel.
+// block-major, products on CUDA cores in fp32), the query, attention.cuh's
+// energy and softmax/context kernels, scan_lstm_kernel.
 //
 // Backward design. At bf16 (the training path) the chain runs on the
 // tensor cores, six launches a step (see the "backward, bf16" section):
@@ -1275,7 +1275,7 @@ static cudaError_t run_bwd_tc(const Bwd& r, float* scratch, int sms,
 //   fwd_energy_kernel   per (32 positions, FE_RB rows): the location term
 //                       as an im2col bf16 mma product of [w ; w_cum] windows
 //                       and K2, then e = W(tanh(q + loc + proc)) . v
-//   softmax_ctx_kernel  the serving chunk's (attention.cuh)
+//   softmax_ctx_kernel  attention.cuh's
 //   scan_cell_kernel    g2 = [att_h[t] ; ctx_t ; h2_{t-1}] @ w2, the
 //                       decoder-LSTM cell in the epilogue -> gd, dec_c,
 //                       dec_h

@@ -17,13 +17,14 @@ processed memory in the compute dtype; the attention mask is an additive
 ``NEG = -1e30`` (so an all-masked row stays finite where ``-inf`` would give
 NaN).
 
-``decoder_chunk`` takes the kernel (``csrc/decoder_batch.cu``) for CUDA
-tensors and the plain version for CPU tensors; nothing else picks between
-them. A bf16 chunk of up to 32 rows runs as one persistent cooperative
-launch whose LSTM products are tensor-core products (weights packed once
-in ``pack_batch_decoder_params``); fp32 and other shapes take per-step
-launches. The CUDA source's header note gives the kernel's design and what
-bounds it on the H100.
+``decoder_chunk`` is the one place that picks between the two: a card
+takes the kernel (``csrc/decoder_batch.cu``), one persistent cooperative
+launch for each consecutive slice of at most 32 rows, whose LSTM products
+are tensor-core products (weights packed once in
+``pack_batch_decoder_params``); CPU tensors take the plain version. The
+kernel takes bf16 alone, so on a card an fp32 chunk raises, and so do the
+entry points that would run one (``require_bf16``). The CUDA source's
+header note gives the kernel's design and what bounds it on the H100.
 """
 
 from __future__ import annotations
@@ -46,13 +47,10 @@ from tacotron2_tpu_torch.utils.profiling import span
 
 NEG = -1e30       # additive attention mask (the TPU kernels' -inf stand-in)
 GATE_MASK = 1e3   # gate value of finished rows (reference model.py:495)
-_DEC_UNITS = 8    # hidden units per LSTM block in csrc/decoder_batch.cu
+_DEC_UNITS = 8    # hidden units per block of the block-major w1 and w2
 # PC_NPH of csrc/persistent_chunk.cuh: the persistent chunk's phases of
 # items (prenet, query, energies, softmax and context, projection)
 N_ITEM_PHASES = 5
-# csrc/decoder_batch.cu's kernels, in the order of its chunk_smem
-_KERNELS = ("prenet_kernel", "lstm_kernel", "query_kernel", "energy_kernel",
-            "softmax_ctx_kernel", "proj_kernel")
 
 
 def gate_logit_threshold(cfg: Tacotron2Config) -> float:
@@ -82,10 +80,10 @@ class BatchDecoderParams(NamedTuple):
     wpe: torch.Tensor   # (d + e, n + 1): mel columns 0:n, gate column n
     bpe: torch.Tensor   # (n + 1,) fp32
     # the two LSTMs' [wi ; wh] again, in mma fragment order
-    # (lstm_layout.to_mma_tiles), for the persistent bf16 kernel; None at
-    # fp32 or where the widths are no whole unit groups and k16 steps
-    w1f: Optional[torch.Tensor] = None  # (a/4, (p+e+a)/16, 32, 8)
-    w2f: Optional[torch.Tensor] = None  # (d/4, (a+e+d)/16, 32, 8)
+    # (lstm_layout.to_mma_tiles), for the persistent bf16 kernel, the input
+    # depth padded with zero rows to whole k16 steps; None at fp32
+    w1f: Optional[torch.Tensor] = None  # (a/4, ceil((p+e+a)/16), 32, 8)
+    w2f: Optional[torch.Tensor] = None  # (d/4, ceil((a+e+d)/16), 32, 8)
 
 
 class ChunkCarry(NamedTuple):
@@ -133,9 +131,9 @@ def pack_batch_decoder_params(model, dtype: torch.dtype) -> BatchDecoderParams:
         def lstm(w_ih, w_hh, b_ih, b_hh):
             w = torch.cat([w_ih, w_hh], dim=1).t()
             wf = None
-            if (dtype == torch.bfloat16 and w.shape[0] % 16 == 0
-                    and w.shape[1] % (4 * MMA_UNITS) == 0):
-                wf = to_mma_tiles(w.to(dtype))
+            if dtype == torch.bfloat16:
+                wf = to_mma_tiles(F.pad(w, (0, 0, 0, -w.shape[0] % 16))
+                                  .to(dtype))
             return (to_blocks(w.to(dtype), _DEC_UNITS),
                     (b_ih + b_hh).float().contiguous(), wf)
         w1, b1, w1f = lstm(wia, wha, bia, bha)
@@ -169,37 +167,52 @@ def attention_inputs(memory: torch.Tensor, processed: torch.Tensor,
             emask)
 
 
-def kernel_limits(cfg: Tacotron2Config, t_in: int,
+def require_bf16(dtype: torch.dtype,
+                 device: Union[str, torch.device]) -> None:
+    """Raise ValueError for a chunk in ``dtype`` on ``device`` that no
+    kernel takes: on a card the chunks launch their kernels, which take
+    bf16 alone (the plain version runs on the CPU)."""
+    if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError(f"the decoder kernels take bf16 on a card, got "
+                         f"{dtype}; decode an fp32 config on the CPU")
+
+
+def kernel_limits(cfg: Tacotron2Config, t_in: int, rows: int,
                   device: Union[str, torch.device]) -> Optional[str]:
     """Why the CUDA chunk cannot run this config at encoder length
-    ``t_in`` on ``device``, or None when it can. The kernel's source
-    answers (``decoder_chunk_limits``), so this builds it if needed."""
-    return _limits(torch.device(device), t_in,
+    ``t_in`` in batches of ``rows`` rows on ``device``, or None when it
+    can. The kernel's source answers (``decoder_chunk_limits``: the
+    persistent plan at the rows one launch takes), so this builds it if
+    needed."""
+    return _limits("decoder_batch", torch.device(device), rows, t_in,
                    cfg.n_mel_channels * cfg.n_frames_per_step,
                    cfg.prenet_dim, cfg.encoder_embedding_dim,
                    padded_width(cfg.attention_rnn_dim, _DEC_UNITS),
                    padded_width(cfg.decoder_rnn_dim, _DEC_UNITS),
-                   cfg.attention_dim, cfg.attention_location_kernel_size)
+                   cfg.attention_dim, cfg.attention_location_kernel_size)[0]
 
 
-def _limits(device: torch.device, T: int, n: int, p: int, e: int, a: int,
-            d: int, datt: int, ks: int) -> Optional[str]:
-    lib = _build.load("decoder_batch", _SIGNATURES)
-    need, have = ctypes.c_size_t(0), ctypes.c_int(0)
+def _limits(source: str, device: torch.device, B: int, T: int,
+            *shape) -> Tuple[Optional[str], int]:
+    """(why the chunk of the library ``source`` refuses B rows at T and
+    ``shape`` (n, p, e, a, d, datt, ks), or None; the most rows one launch
+    takes). The persistent plan answers, worded by the source's
+    ``error_string``; raises when a device query failed."""
+    lib = _build.load(source, _SIGNATURES)
+    rows, need, have = ctypes.c_int(0), ctypes.c_size_t(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        code = lib.decoder_chunk_limits(T, n, p, e, a, d, datt, ks,
-                                        ctypes.byref(need), ctypes.byref(have))
+        code = lib.decoder_chunk_limits(B, T, *shape, ctypes.byref(rows),
+                                        ctypes.byref(need),
+                                        ctypes.byref(have))
+    if code > 0:
+        _build.check(lib, code, "decoder_chunk_limits")
     if code == 0:
-        return None
-    if code == 1:
-        return f"LSTM widths must be multiples of {_DEC_UNITS}"
-    if code == 2:
-        return "location kernel size must be odd"
-    if code < 0:
-        raise RuntimeError("decoder kernel: the device's shared-memory limit "
-                           "could not be read")
-    return (f"{_KERNELS[code - 3]} needs {need.value} bytes of shared memory "
-            f"at encoder length {T}; a block may use {have.value}")
+        return None, rows.value
+    reason = lib.error_string(code).decode()
+    if need.value:
+        reason += (f": {need.value} bytes at encoder length {T}; a block "
+                   f"may use {have.value}")
+    return reason, rows.value
 
 
 # ------------------------------------------------------------------ plain
@@ -269,24 +282,27 @@ def _cell(g: torch.Tensor, c: torch.Tensor):
 # ----------------------------------------------------------------- kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"decoder_chunk": [_I] + [_P] * 35 + [_I] * 11
+# the C entries of both chunks' libraries (csrc/decoder_batch.cu and
+# csrc/decoder_step.cu export the same three)
+_SIGNATURES = {"decoder_chunk": [_P] * 35 + [_I] * 11
                + [ctypes.c_float, _P, _P],
                "decoder_chunk_scratch": [_I] * 5 + [
                    ctypes.POINTER(ctypes.c_size_t)],
-               "decoder_chunk_limits": [_I] * 8 + [
+               "decoder_chunk_limits": [_I] * 9 + [
+                   ctypes.POINTER(ctypes.c_int),
                    ctypes.POINTER(ctypes.c_size_t),
                    ctypes.POINTER(ctypes.c_int)]}
 
 
 def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
-                         chunk_steps, limits=_limits, att_dtype=None) -> None:
-    """Shapes, types, device and contiguity of a chunk's tensors, then the
-    kernel's own limits. ``att_dtype`` is the type of K2, memory and
-    processed memory (the weights' type unless given); ``limits`` the
-    function that asks the kernel's source."""
+                         chunk_steps, source="decoder_batch",
+                         att_dtype=None) -> int:
+    """bf16 weights, then the shapes, types, device and contiguity of a
+    chunk's tensors, then the persistent plan's own limits in the library
+    ``source``. ``att_dtype`` is the type of K2, memory and processed
+    memory (bf16 unless given). Returns the most rows one launch takes."""
     W = fp.w1.dtype
-    if W not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decoder kernel takes fp32 or bf16, got {W}")
+    require_bf16(W, mem.device)
     L = att_dtype or W
     B, T, e = mem.shape
     n, p = fp.pre1.shape
@@ -312,8 +328,10 @@ def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
     }
     for name, t, k, h in (("w1f", fp.w1f, p + e + a, a),
                           ("w2f", fp.w2f, a + e + d, d)):
-        if t is not None:
-            expect[name] = (t, (h // MMA_UNITS, k // 16, 32, 8), W)
+        if t is None:
+            raise ValueError(f"decoder kernel: the pack has no {name} (the "
+                             f"LSTM weights in fragment order)")
+        expect[name] = (t, (h // MMA_UNITS, -(-k // 16), 32, 8), W)
     if kp1 is not None:
         expect["kp1"] = (kp1, (chunk_steps, B, p), f32)
         expect["kp2"] = (kp2, (chunk_steps, B, p), f32)
@@ -324,9 +342,11 @@ def _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
         if not t.is_cuda or t.device != mem.device or not t.is_contiguous():
             raise ValueError(f"{name}: decoder kernel inputs must be "
                              f"contiguous tensors on one CUDA device")
-    reason = limits(mem.device, T, n, p, e, a, d, datt, ks)
+    reason, rows = _limits(source, mem.device, B, T, n, p, e, a, d, datt,
+                           ks)
     if reason is not None:
         raise ValueError(f"decoder kernel: {reason}")
+    return rows
 
 
 def decoder_chunk(fp: BatchDecoderParams, carry: ChunkCarry,
@@ -335,21 +355,37 @@ def decoder_chunk(fp: BatchDecoderParams, carry: ChunkCarry,
                   kp1: Optional[torch.Tensor] = None,
                   kp2: Optional[torch.Tensor] = None) -> ChunkOut:
     """``chunk_steps`` decoder steps; same contract as
-    ``decoder_chunk_plain``. CUDA tensors launch the kernel (or raise); CPU
-    tensors take the plain version. The input carry is not modified."""
+    ``decoder_chunk_plain``. CUDA tensors launch the kernel (or raise: it
+    takes bf16 weights alone), one launch for each consecutive slice of as
+    many rows as one takes; CPU tensors take the plain version. The input
+    carry is not modified."""
+    if (kp1 is None) != (kp2 is None):
+        raise ValueError("pass both prenet keep masks or neither")
     if not mem.is_cuda:
+        count_rounds(decoder_chunk, (0,) * N_ITEM_PHASES)
         return decoder_chunk_plain(fp, carry, mem, proc, emask, t0=t0,
                                    chunk_steps=chunk_steps,
                                    gate_logit=gate_logit, kp1=kp1, kp2=kp2)
-    if (kp1 is None) != (kp2 is None):
-        raise ValueError("pass both prenet keep masks or neither")
-    _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2, chunk_steps)
+    rows = _check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
+                                chunk_steps)
+    if mem.shape[0] > rows:
+        return _sliced(fp, carry, mem, proc, emask, kp1, kp2, rows, t0=t0,
+                       chunk_steps=chunk_steps, gate_logit=gate_logit)
+    return _launch("decoder_batch", decoder_chunk, fp, carry, mem, proc,
+                   emask, kp1, kp2, t0, chunk_steps, gate_logit)
+
+
+def _launch(source, fn, fp, carry, mem, proc, emask, kp1, kp2, t0, cs,
+            gate_logit) -> ChunkOut:
+    """One launch of the chunk of the library ``source`` (both export
+    ``decoder_chunk`` and ``decoder_chunk_scratch`` with one signature) on
+    checked inputs; the wrapper ``fn`` keeps the counts."""
+    lib = _build.load(source, _SIGNATURES)
     B, T, e = mem.shape
     n, p = fp.pre1.shape
     a, d = carry.h1.shape[1], carry.h2.shape[1]
     ks, _, datt = fp.k2.shape
     dev = mem.device
-    cs = chunk_steps
     h1 = torch.empty(2, B, a, device=dev)
     h1[0].copy_(carry.h1)
     h2 = torch.empty(2, B, d, device=dev)
@@ -366,26 +402,26 @@ def decoder_chunk(fp: BatchDecoderParams, carry: ChunkCarry,
     gate = torch.empty(cs, B, device=dev)
     align = torch.empty(cs, B, T, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()
-    lib = _build.load("decoder_batch", _SIGNATURES)
     nbytes = ctypes.c_size_t(0)
     lib.decoder_chunk_scratch(B, p, e, a, d, ctypes.byref(nbytes))
     scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     rounds = (ctypes.c_int * N_ITEM_PHASES)()
-    status = lib.decoder_chunk(
-        int(fp.w1.dtype == torch.bfloat16),
-        *(x.data_ptr() for x in (fp.pre1, fp.pre2, fp.w1, fp.b1, fp.w2,
-                                 fp.b2, fp.wq, fp.k2, fp.v, fp.wpe, fp.bpe)),
-        ptr(fp.w1f), ptr(fp.w2f),
-        *(x.data_ptr() for x in (mem, proc, emask)),
-        ptr(kp1), ptr(kp2),
-        *(x.data_ptr() for x in (h1, c1, h2, c2, w, wc, ctx, prev, fin,
-                                 lens, a2, q, energies, mel, gate, align,
-                                 scratch)),
-        B, T, n, p, e, a, d, datt, ks, cs, int(t0), float(gate_logit),
-        torch.cuda.current_stream(dev).cuda_stream, rounds)
+    with torch.cuda.device(dev):
+        status = lib.decoder_chunk(
+            *(x.data_ptr() for x in (fp.pre1, fp.pre2, fp.w1, fp.b1, fp.w2,
+                                     fp.b2, fp.wq, fp.k2, fp.v, fp.wpe,
+                                     fp.bpe, fp.w1f, fp.w2f, mem, proc,
+                                     emask)),
+            ptr(kp1), ptr(kp2),
+            *(x.data_ptr() for x in (h1, c1, h2, c2, w, wc, ctx, prev, fin,
+                                     lens, a2, q, energies, mel, gate,
+                                     align, scratch)),
+            B, T, n, p, e, a, d, datt, ks, cs, int(t0),
+            float(gate_logit), torch.cuda.current_stream(dev).cuda_stream,
+            rounds)
     _build.check(lib, status, "decoder_chunk")
-    decoder_chunk.launches += 1
-    count_rounds(decoder_chunk, rounds)
+    fn.launches += 1
+    count_rounds(fn, rounds)
     new = ChunkCarry(h1[cs % 2], c1, h2[cs % 2], c2, w, wc, ctx, prev,
                      fin[cs % 2], lens)
     return ChunkOut(mel, gate, align, new)
@@ -396,11 +432,33 @@ decoder_chunk.phase_rounds = (0,) * N_ITEM_PHASES
 decoder_chunk.rounds = 0
 
 
+def _sliced(fp, carry, mem, proc, emask, kp1, kp2, rows, **kw) -> ChunkOut:
+    """``decoder_chunk`` over consecutive slices of at most ``rows`` rows,
+    one launch each, joined. Rows are independent, so each slice gives what
+    its rows give alone. The rounds of items kept are the largest of each
+    phase over the slices."""
+    outs, rounds = [], []
+    for i in range(0, mem.shape[0], rows):
+        cut = slice(i, i + rows)
+        keep = lambda k: None if k is None else k[:, cut].contiguous()
+        outs.append(decoder_chunk(
+            fp, ChunkCarry(*(x[cut] for x in carry)), mem[cut], proc[cut],
+            emask[cut], kp1=keep(kp1), kp2=keep(kp2), **kw))
+        rounds.append(decoder_chunk.phase_rounds)
+    count_rounds(decoder_chunk, map(max, zip(*rounds)))
+    join = lambda xs, dim: torch.cat(list(xs), dim)
+    return ChunkOut(join((o.mel for o in outs), 1),
+                    join((o.gate for o in outs), 1),
+                    join((o.align for o in outs), 1),
+                    ChunkCarry(*(join(xs, 0) for xs in
+                                 zip(*(o.carry for o in outs)))))
+
+
 def count_rounds(fn, rounds) -> None:
     """Keep a chunk's rounds of items by phase (the persistent plan's:
     prenet, query, energies, softmax and context, projection) on its
-    wrapper ``fn``, and the largest as ``fn.rounds``; 0 after a chunk that
-    took the per-step launches."""
+    wrapper ``fn``, and the largest as ``fn.rounds``; zeros after a plain
+    chunk."""
     fn.phase_rounds = tuple(rounds)
     fn.rounds = max(fn.phase_rounds)
 

@@ -20,25 +20,23 @@ context sum. After the gate latches the state keeps stepping (h, c,
 attention and the previous frame all advance); only mel, gate, align and
 the length are masked.
 
-``decoder_step_chunk`` takes the kernel (``csrc/decoder_step.cu``) for CUDA
-tensors and the plain version for CPU tensors; nothing else picks between
-them. A bf16 chunk runs as one persistent cooperative launch, the batched
-chunk's persistent kernel at B=1 with this TPU kernel's cast points
-(``csrc/persistent_chunk.cuh``), from the LSTM weights packed once in
-fragment order; fp32 and other shapes take per-step launches. The CUDA
+``decoder_step_chunk`` is the one place that picks between the two: a
+card takes the kernel (``csrc/decoder_step.cu``), one persistent
+cooperative launch, the batched chunk's persistent kernel at B=1 with this
+TPU kernel's cast points (``csrc/persistent_chunk.cuh``), from the LSTM
+weights packed once in fragment order; CPU tensors take the plain version.
+The kernel takes bf16 alone, so on a card an fp32 chunk raises. The CUDA
 source's header note gives the kernel's design and what bounds it on the
 H100.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from tacotron2_tpu_torch.config import Tacotron2Config
-from tacotron2_tpu_torch.kernels import _build
 from tacotron2_tpu_torch.kernels import decoder_batch as db
 from tacotron2_tpu_torch.kernels.decoder_batch import (
     GATE_MASK, BatchDecoderParams, ChunkCarry, ChunkOut)
@@ -48,9 +46,6 @@ from tacotron2_tpu_torch.kernels.lstm_layout import from_blocks
 # row-major (in, out), LSTM weights block-major, compute dtype, at bf16 the
 # LSTMs again in fragment order) except that ``k2`` stays fp32.
 FusedDecoderParams = BatchDecoderParams
-
-_KERNELS = ("prenet_kernel", "lstm_row_kernel", "query_kernel",
-            "energy_kernel", "softmax_ctx_kernel", "proj_kernel")
 
 
 def pack_decoder_params(model, dtype: torch.dtype) -> FusedDecoderParams:
@@ -69,26 +64,6 @@ def attention_inputs(memory: torch.Tensor, processed: torch.Tensor,
     """(mem, proc) in fp32, as the TPU kernel takes them, and the additive
     fp32 mask."""
     return db.attention_inputs(memory, processed, mask, torch.float32)
-
-
-def _limits(device: torch.device, T: int, n: int, p: int, e: int, a: int,
-            d: int, datt: int, ks: int) -> Optional[str]:
-    lib = _build.load("decoder_step", _SIGNATURES)
-    need, have = ctypes.c_size_t(0), ctypes.c_int(0)
-    with torch.cuda.device(device):
-        code = lib.decoder_step_limits(T, n, p, e, a, d, datt, ks,
-                                       ctypes.byref(need), ctypes.byref(have))
-    if code == 0:
-        return None
-    if code == 1:
-        return "LSTM widths must be multiples of 8"
-    if code == 2:
-        return "location kernel size must be odd"
-    if code < 0:
-        raise RuntimeError("decoder kernel: the device's shared-memory limit "
-                           "could not be read")
-    return (f"{_KERNELS[code - 3]} needs {need.value} bytes of shared memory "
-            f"at encoder length {T}; a block may use {have.value}")
 
 
 # ------------------------------------------------------------------ plain
@@ -150,85 +125,31 @@ decoder_step_chunk_plain.calls = 0
 
 # ----------------------------------------------------------------- kernel
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"decoder_step_chunk": [_I] + [_P] * 35 + [_I] * 10
-               + [ctypes.c_float, _P, _P],
-               "decoder_step_scratch": [_I] * 4 + [
-                   ctypes.POINTER(ctypes.c_size_t)],
-               "decoder_step_limits": [_I] * 8 + [
-                   ctypes.POINTER(ctypes.c_size_t),
-                   ctypes.POINTER(ctypes.c_int)]}
-
-
 def decoder_step_chunk(fp: FusedDecoderParams, carry: ChunkCarry,
                        mem: torch.Tensor, proc: torch.Tensor,
                        emask: torch.Tensor, *, t0: int, chunk_steps: int,
                        gate_logit: float, kp1: Optional[torch.Tensor] = None,
                        kp2: Optional[torch.Tensor] = None) -> ChunkOut:
     """``chunk_steps`` decoder steps of one row; same contract as
-    ``decoder_step_chunk_plain``. CUDA tensors launch the kernel (or
-    raise); CPU tensors take the plain version. The input carry is not
-    modified."""
+    ``decoder_step_chunk_plain``. CUDA tensors launch the kernel (or raise:
+    it takes bf16 weights alone); CPU tensors take the plain version. The
+    input carry is not modified."""
     if mem.shape[0] != 1:
         raise ValueError(f"the single-utterance chunk takes one row, got "
                          f"{mem.shape[0]}")
     if (kp1 is None) != (kp2 is None):
         raise ValueError("pass both prenet keep masks or neither")
     if not mem.is_cuda:
+        db.count_rounds(decoder_step_chunk, (0,) * db.N_ITEM_PHASES)
         return decoder_step_chunk_plain(fp, carry, mem, proc, emask, t0=t0,
                                         chunk_steps=chunk_steps,
                                         gate_logit=gate_logit, kp1=kp1,
                                         kp2=kp2)
     db._check_kernel_inputs(fp, carry, mem, proc, emask, kp1, kp2,
-                            chunk_steps, limits=_limits,
+                            chunk_steps, source="decoder_step",
                             att_dtype=torch.float32)
-    _, T, e = mem.shape
-    n, p = fp.pre1.shape
-    a, d = carry.h1.shape[1], carry.h2.shape[1]
-    ks, _, datt = fp.k2.shape
-    dev = mem.device
-    cs = chunk_steps
-    h1 = torch.empty(2, 1, a, device=dev)
-    h1[0].copy_(carry.h1)
-    h2 = torch.empty(2, 1, d, device=dev)
-    h2[0].copy_(carry.h2)
-    fin = torch.empty(2, 1, dtype=torch.int32, device=dev)
-    fin[0].copy_(carry.fin)
-    c1, c2, w, wc, ctx, prev, lens = (
-        x.clone() for x in (carry.c1, carry.c2, carry.w, carry.wc,
-                            carry.ctx, carry.prev, carry.lens))
-    a2 = torch.empty(1, p, device=dev)
-    q = torch.empty(1, datt, device=dev)
-    energies = torch.empty(1, T, device=dev)
-    mel = torch.empty(cs, 1, n, device=dev)
-    gate = torch.empty(cs, 1, device=dev)
-    align = torch.empty(cs, 1, T, device=dev)
-    ptr = lambda x: None if x is None else x.data_ptr()
-    lib = _build.load("decoder_step", _SIGNATURES)
-    nbytes = ctypes.c_size_t(0)
-    lib.decoder_step_scratch(p, e, a, d, ctypes.byref(nbytes))
-    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
-    rounds = (ctypes.c_int * db.N_ITEM_PHASES)()
-    with torch.cuda.device(dev):
-        status = lib.decoder_step_chunk(
-            int(fp.w1.dtype == torch.bfloat16),
-            *(x.data_ptr() for x in (fp.pre1, fp.pre2, fp.w1, fp.b1, fp.w2,
-                                     fp.b2, fp.wq, fp.k2, fp.v, fp.wpe,
-                                     fp.bpe)),
-            ptr(fp.w1f), ptr(fp.w2f),
-            *(x.data_ptr() for x in (mem, proc, emask)),
-            ptr(kp1), ptr(kp2),
-            *(x.data_ptr() for x in (h1, c1, h2, c2, w, wc, ctx, prev, fin,
-                                     lens, a2, q, energies, mel, gate,
-                                     align, scratch)),
-            T, n, p, e, a, d, datt, ks, cs, int(t0), float(gate_logit),
-            torch.cuda.current_stream(dev).cuda_stream, rounds)
-    _build.check(lib, status, "decoder_step_chunk")
-    decoder_step_chunk.launches += 1
-    db.count_rounds(decoder_step_chunk, rounds)
-    new = ChunkCarry(h1[cs % 2], c1, h2[cs % 2], c2, w, wc, ctx, prev,
-                     fin[cs % 2], lens)
-    return ChunkOut(mel, gate, align, new)
+    return db._launch("decoder_step", decoder_step_chunk, fp, carry, mem,
+                      proc, emask, kp1, kp2, t0, chunk_steps, gate_logit)
 
 
 decoder_step_chunk.launches = 0

@@ -867,10 +867,12 @@ def infer_batch_fused(model: Tacotron2, text: torch.Tensor,
     compute dtype (built on the fly if omitted). ``generator`` with
     ``prenet_dropout_at_inference`` runs the reference's inference-time
     prenet dropout; None runs the deterministic prenet. The model must
-    already be on ``device``."""
-    text, text_lengths = _on_device(model, text, text_lengths, device)
+    already be on ``device``; on a card the kernel takes bf16 alone, and
+    another compute dtype raises before any work."""
     if compute_dtype is None:
         compute_dtype = cfg.torch_compute_dtype
+    db.require_bf16(compute_dtype, device)
+    text, text_lengths = _on_device(model, text, text_lengths, device)
     kdtype = compute_dtype
     if compute_dtype == torch.float32:
         compute_dtype = None  # full fp32, as the JAX package's None
@@ -904,12 +906,14 @@ def infer_fused(model: Tacotron2, text: torch.Tensor,
     ``pack_encoder_lstm`` results in the compute dtype (built on the fly if
     omitted). ``generator`` with ``prenet_dropout_at_inference`` runs the
     reference's inference-time prenet dropout; None runs the deterministic
-    prenet. The model must already be on ``device``."""
+    prenet. The model must already be on ``device``; on a card the kernel
+    takes bf16 alone, and another compute dtype raises before any work."""
     if text.shape[0] != 1:
         raise ValueError("the fused decode takes one utterance (B=1)")
-    text, text_lengths = _on_device(model, text, text_lengths, device)
     if compute_dtype is None:
         compute_dtype = cfg.torch_compute_dtype
+    db.require_bf16(compute_dtype, device)
+    text, text_lengths = _on_device(model, text, text_lengths, device)
     kdtype = compute_dtype
     if compute_dtype == torch.float32:
         compute_dtype = None  # full fp32, as the JAX package's None

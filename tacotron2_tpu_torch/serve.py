@@ -61,15 +61,22 @@ class BatchingSynthesizer:
                  max_wait_ms: float = 5.0, max_steps: Optional[int] = None,
                  deterministic: bool = True,
                  device: Union[str, torch.device] = "cuda"):
-        self.device = tacotron2.resolve_device(device)
         config.validate()
         self.config = (config.replace(prenet_dropout_at_inference=False)
                        if deterministic else config)
-        self.model = _as_model(model, config).to(self.device).eval()
-        self.quantized = tacotron2.is_quantized(self.model)
-        if self.device.type == "cuda" and not self.quantized:
+        model = _as_model(model, config)
+        self.quantized = tacotron2.is_quantized(model)
+        dtype = self.config.torch_compute_dtype
+        # the decoder kernel's limits, before the model goes to the card
+        kernel = torch.device(device).type == "cuda" and not self.quantized
+        if kernel:
+            db.require_bf16(dtype, device)
+        self.device = tacotron2.resolve_device(device)
+        self.model = model.to(self.device).eval()
+        if kernel:
             for t in self.config.text_buckets:
-                reason = db.kernel_limits(self.config, t, self.device)
+                reason = db.kernel_limits(self.config, t, max_batch,
+                                          self.device)
                 if reason is not None:
                     raise ValueError(f"decoder kernel cannot serve text "
                                      f"bucket {t}: {reason}")
@@ -77,7 +84,6 @@ class BatchingSynthesizer:
         self.max_wait_ms = max_wait_ms
         self.max_steps = max_steps or config.max_decoder_steps
         # packed once: the layout is independent of the text bucket
-        dtype = self.config.torch_compute_dtype
         self._packed = (None if self.quantized else
                         db.pack_batch_decoder_params(self.model, dtype))
         self._packed_lstm = tacotron2.pack_encoder_lstm(self.model, dtype)

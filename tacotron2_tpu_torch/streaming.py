@@ -131,6 +131,8 @@ class StreamingSynthesizer:
             raise ValueError("fused streaming needs unquantized weights")
         self._fused = fused
         kdtype = cfg.torch_compute_dtype
+        if fused:
+            db.require_bf16(kdtype, self.device)
         self._cd = None if kdtype == torch.float32 else kdtype
         self._packed = (ds.pack_decoder_params(self.model, kdtype)
                         if fused else None)

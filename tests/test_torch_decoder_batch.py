@@ -248,3 +248,68 @@ def test_look_ahead_equals_sequential_loop(stop, dropout):
         assert 0 < int(got[3].max()) - cs
     if dropout:
         assert torch.equal(g_ahead.get_state(), g_seq.get_state())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliced_chunk_joins_what_the_slices_give(dtype):
+    """The kernel path's batch of more rows than one launch takes runs as
+    consecutive slices (``_sliced``), joined; here at 3 rows a slice over
+    the plain version on the CPU, with keep masks and a gate that latches:
+    one call a slice, and the joined outputs and carry those of the whole
+    batch in one call (rows are independent), finished and lengths
+    exactly."""
+    cfg = Tacotron2Config(**DIMS)
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(3))
+    fp = db.pack_batch_decoder_params(model, dtype)
+    g = torch.Generator().manual_seed(4)
+    B, T, cs = 8, 20, 6
+    memory = torch.randn(B, T, 128, generator=g) * 0.5
+    proc = torch.randn(B, T, 128, generator=g) * 0.5
+    lengths = torch.randint(5, T + 1, (B,), generator=g)
+    mask = torch.arange(T)[None] < lengths[:, None]
+    mem, proc, emask = db.attention_inputs(memory, proc, mask, dtype)
+    z = lambda *s: torch.zeros(*s)
+    i32 = lambda: torch.zeros(B, dtype=torch.int32)
+    carry = db.ChunkCarry(z(B, 128), z(B, 128), z(B, 128), z(B, 128),
+                          z(B, T), z(B, T), z(B, 128), z(B, 16), i32(), i32())
+    kp1, kp2 = ((torch.rand(cs, B, 128, generator=g) < 0.5).float()
+                for _ in range(2))
+    kw = dict(t0=2, chunk_steps=cs, gate_logit=1e30)
+    # half the rows latch: between the middle two rows' largest gate logits
+    top = db.decoder_chunk_plain(fp, carry, mem, proc, emask, kp1=kp1,
+                                 kp2=kp2, **kw).gate.max(0).values.sort()[0]
+    kw["gate_logit"] = float(top[B // 2 - 1] + top[B // 2]) / 2
+    calls = db.decoder_chunk_plain.calls
+    got = db._sliced(fp, carry, mem, proc, emask, kp1, kp2, 3, **kw)
+    assert db.decoder_chunk_plain.calls - calls == 3
+    want = db.decoder_chunk_plain(fp, carry, mem, proc, emask, kp1=kp1,
+                                  kp2=kp2, **kw)
+    assert int(want.carry.fin.sum()) == B // 2
+    for a, b in zip((*got[:3], *got.carry), (*want[:3], *want.carry)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got.carry.fin, want.carry.fin)
+    assert torch.equal(got.carry.lens, want.carry.lens)
+
+
+def test_fp32_on_a_card_is_refused_before_any_work():
+    """The decoder kernels take bf16 alone and nothing decodes in plain
+    PyTorch on a card: ``require_bf16`` refuses fp32 on a CUDA device and
+    passes fp32 on the CPU and bf16 anywhere; ``infer_fused``,
+    ``infer_batch_fused`` and ``BatchingSynthesizer`` refuse an fp32 config
+    asked to run on the card before they look for one, so the refusal is
+    the same with or without a card."""
+    from tacotron2_tpu_torch.serve import BatchingSynthesizer
+    with pytest.raises(ValueError, match="take bf16"):
+        db.require_bf16(torch.float32, "cuda")
+    db.require_bf16(torch.float32, "cpu")
+    db.require_bf16(torch.bfloat16, torch.device("cuda", 0))
+    cfg = Tacotron2Config(**DIMS).replace(compute_dtype="float32")
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0))
+    text, lengths = torch.ones(1, 5, dtype=torch.long), torch.tensor([5])
+    plain = db.decoder_chunk_plain.calls
+    for entry in (tm.infer_fused, tm.infer_batch_fused):
+        with pytest.raises(ValueError, match="take bf16"):
+            entry(model, text, lengths, cfg, max_steps=2, device="cuda")
+    with pytest.raises(ValueError, match="take bf16"):
+        BatchingSynthesizer(model, cfg, device="cuda")
+    assert db.decoder_chunk_plain.calls == plain

@@ -256,8 +256,8 @@ def test_input_checks():
 
 def test_bf16_pack_keeps_the_fragment_order_weights():
     """The persistent chunk reads both LSTMs in mma fragment order: at bf16
-    the pack keeps them (where the widths are whole unit groups and k16
-    steps), at fp32 it has none."""
+    the pack keeps them (here the input depths are whole k16 steps
+    already), at fp32 it has none."""
     from tacotron2_tpu_torch.kernels.lstm_layout import (from_blocks,
                                                          from_mma_tiles)
     tcfg = Tacotron2Config(**{**DIMS, "attention_rnn_dim": 48})
@@ -268,6 +268,24 @@ def test_bf16_pack_keeps_the_fragment_order_weights():
         assert torch.equal(from_mma_tiles(frags), from_blocks(blocks))
     fp32 = ds.pack_decoder_params(model, torch.float32)
     assert fp32.w1f is None and fp32.w2f is None
+
+
+def test_bf16_pack_pads_lstm_depths_to_k16_steps():
+    """At A=40 the LSTM input depths, 16 + 32 + 40 = 88 and 40 + 32 + 48 =
+    120, are no whole k16 steps: the fragment-order copies hold each
+    [wi ; wh] with zero rows after it up to 96 and 128 (pc_depth), which
+    meet X's zero columns in the kernel."""
+    from tacotron2_tpu_torch.kernels.lstm_layout import (from_blocks,
+                                                         from_mma_tiles)
+    tcfg = Tacotron2Config(**DIMS)
+    model = tm.Tacotron2(tcfg, torch.Generator().manual_seed(0))
+    fp = ds.pack_decoder_params(model, torch.bfloat16)
+    for blocks, frags, K, Kp in ((fp.w1, fp.w1f, 88, 96),
+                                 (fp.w2, fp.w2f, 120, 128)):
+        w = from_blocks(blocks)
+        got = from_mma_tiles(frags)
+        assert w.shape[0] == K and got.shape == (Kp, w.shape[1])
+        assert torch.equal(got[:K], w) and not got[K:].any()
 
 
 PC_WARPS, PC_UMAX, PC_UG, PC_EP = 16, 2, 4, 4   # csrc/persistent_chunk.cuh

@@ -69,9 +69,6 @@ STEP_REL = {
     torch.bfloat16: dict(mel=1e-2, gate=3e-1, align=2e-2, h1=1e-2, c1=1e-2,
                          h2=5e-3, c2=5e-3, w=2e-2, wc=2e-3, ctx=3e-3,
                          prev=1e-2),
-    torch.float32: dict(mel=2e-5, gate=2e-4, align=2e-5, h1=1e-5, c1=1e-5,
-                        h2=1e-5, c2=1e-5, w=2e-5, wc=1e-5, ctx=2e-5,
-                        prev=2e-5),
 }
 INT8_REL = 1e-5
 MEL_LOG_ATOL = 1e-4
@@ -141,19 +138,20 @@ def perturbed(out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("B,r,dropout", [(4, 1, False), (21, 2, True)])
-def test_decoder_kernel_matches_plain(cuda, dtype, tol, B, r, dropout):
-    """Every output and carry field; finished and lengths exactly. The
-    same check rejects the kernel's output with its attention perturbed."""
-    args, kw = chunk_case(cuda, dtype, B, r, dropout)
+def test_decoder_kernel_matches_plain(cuda, B, r, dropout):
+    """bf16, the kernel's one precision: every output and carry field;
+    finished and lengths exactly. The same check rejects the kernel's
+    output with its attention perturbed."""
+    bf16 = torch.bfloat16
+    args, kw = chunk_case(cuda, bf16, B, r, dropout)
     got = db.decoder_chunk(*args, **kw)
     want = db.decoder_chunk_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert_chunks_close(got, want, DEC_REL[dtype])
+    assert_chunks_close(got, want, DEC_REL[bf16])
     for bad in perturbed(got):
         with pytest.raises(AssertionError):
-            assert_chunks_close(bad, want, DEC_REL[dtype])
+            assert_chunks_close(bad, want, DEC_REL[bf16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -171,12 +169,12 @@ def test_chunk_check_rejects_perturbed_attention(dtype):
 
 @pytest.mark.gpu
 def test_decoder_kernel_rejects_mismatched_inputs(cuda):
-    """A CUDA tensor never falls back to the plain version: inputs the
-    kernel does not take raise."""
+    """A bf16 chunk on the card never falls back to the plain version:
+    inputs the kernel does not take raise."""
     model = tm.Tacotron2(CFG).to(cuda)
-    fp = db.pack_batch_decoder_params(model, torch.float32)
+    fp = db.pack_batch_decoder_params(model, torch.bfloat16)
     x = torch.zeros(2, 8, 128, device=cuda)
-    mem, proc, emask = db.attention_inputs(x, x, None, torch.bfloat16)
+    mem, proc, emask = db.attention_inputs(x, x, None, torch.float32)
     with pytest.raises(ValueError):
         db.decoder_chunk(fp, zero_carry(2, 8, 16, cuda), mem, proc, emask,
                          t0=0, chunk_steps=2, gate_logit=0.0)
@@ -429,25 +427,25 @@ def step_case(device, dtype, T, cs, r, dropout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,cs,r,dropout", [(37, 16, 1, False),
                                             (64, 32, 2, True),
                                             (190, 7, 1, False)])
-def test_decoder_step_kernel_matches_plain(cuda, dtype, T, cs, r, dropout):
-    """Every output and carry field, after the latch too; finished and
-    lengths exactly; perturbed attention is rejected; the input carry is
-    left as it was."""
-    args, kw = step_case(cuda, dtype, T, cs, r, dropout)
+def test_decoder_step_kernel_matches_plain(cuda, T, cs, r, dropout):
+    """bf16, the kernel's one precision: every output and carry field,
+    after the latch too; finished and lengths exactly; perturbed attention
+    is rejected; the input carry is left as it was."""
+    bf16 = torch.bfloat16
+    args, kw = step_case(cuda, bf16, T, cs, r, dropout)
     before = [x.clone() for x in args[1]]
     launches = ds.decoder_step_chunk.launches
     got = ds.decoder_step_chunk(*args, **kw)
     assert ds.decoder_step_chunk.launches == launches + 1
     want = ds.decoder_step_chunk_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert_chunks_close(got, want, STEP_REL[dtype])
+    assert_chunks_close(got, want, STEP_REL[bf16])
     for bad in perturbed(got):
         with pytest.raises(AssertionError):
-            assert_chunks_close(bad, want, STEP_REL[dtype])
+            assert_chunks_close(bad, want, STEP_REL[bf16])
     assert all(torch.equal(a, b) for a, b in zip(args[1], before))
 
 
@@ -681,7 +679,6 @@ def test_persistent_chunk_is_one_deterministic_launch(cuda):
     run = lambda: db.decoder_chunk(*args, **kw)
     names = kernel_names(run)
     assert sum("persistent_chunk_kernel" in n for n in names) == 1, names
-    assert not any("lstm_kernel" in n for n in names), names
     a, b = run(), run()
     for x, y in zip((a.mel, a.gate, a.align, *a.carry),
                     (b.mel, b.gate, b.align, *b.carry)):
@@ -749,6 +746,79 @@ def test_persistent_chunk_takes_one_round_a_phase(cuda):
     args, kw = full_step_case(cuda, 192, 2, False)
     ds.decoder_step_chunk(*args, **kw)
     assert ds.decoder_step_chunk.rounds == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [33, 64])
+def test_persistent_chunk_slices_rows_past_one_launch(cuda, B):
+    """Row 5 at more rows than one launch takes (32): ceil(B / 32)
+    launches, each slice of 32 rows the same bits as those rows run alone,
+    the rounds of items the largest over the slices, and every field
+    within DEC_REL of the plain version."""
+    args, kw = persistent_case(cuda, B, 16, True)
+    launches = db.decoder_chunk.launches
+    got = db.decoder_chunk(*args, **kw)
+    assert db.decoder_chunk.launches == launches + -(-B // 32)
+    rounds = db.decoder_chunk.phase_rounds
+    fp, carry, mem, proc, emask = args
+    alone = []
+    for i in range(0, B, 32):
+        cut = slice(i, i + 32)
+        part = db.decoder_chunk(
+            fp, db.ChunkCarry(*(x[cut] for x in carry)), mem[cut], proc[cut],
+            emask[cut], **{**kw, "kp1": kw["kp1"][:, cut].contiguous(),
+                           "kp2": kw["kp2"][:, cut].contiguous()})
+        alone.append(db.decoder_chunk.phase_rounds)
+        for x, y in zip((got.mel, got.gate, got.align),
+                        (part.mel, part.gate, part.align)):
+            assert torch.equal(x[:, cut], y)   # (cs, B, ...)
+        for x, y in zip(got.carry, part.carry):
+            assert torch.equal(x[cut], y)
+    assert rounds == tuple(map(max, zip(*alone)))
+    want = db.decoder_chunk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_chunks_close(got, want, DEC_REL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("change,words", [
+    (dict(attention_dim=256), "attention width"),
+    (dict(attention_location_kernel_size=33), "location kernel size"),
+    (dict(compute_dtype="float32"), "take bf16")])
+def test_decoder_chunks_refuse_what_the_plan_refuses(cuda, change, words):
+    """On the card, a config the kernels do not take (an attention width
+    above 128 or 33 location taps, which the persistent plan refuses; fp32,
+    which no kernel takes): both chunks raise ValueError with the reason,
+    ``infer_fused`` raises, and ``BatchingSynthesizer`` refuses the config
+    at construction (``StreamingSynthesizer`` too at fp32). No plain
+    version runs on the card."""
+    from tacotron2_tpu_torch.serve import BatchingSynthesizer
+    from tacotron2_tpu_torch.streaming import StreamingSynthesizer
+    cfg = CFG.replace(**{"compute_dtype": "bfloat16", **change})
+    dt = cfg.torch_compute_dtype
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    T = 20
+    mem = torch.randn(1, T, 128, device=cuda)
+    proc = torch.randn(1, T, cfg.attention_dim, device=cuda)
+    kw = dict(t0=0, chunk_steps=2, gate_logit=0.0)
+    carry = zero_carry(1, T, cfg.n_mel_channels, cuda)
+    plain = (db.decoder_chunk_plain.calls, ds.decoder_step_chunk_plain.calls)
+    with pytest.raises(ValueError, match=words):
+        db.decoder_chunk(db.pack_batch_decoder_params(model, dt), carry,
+                         *db.attention_inputs(mem, proc, None, dt), **kw)
+    with pytest.raises(ValueError, match=words):
+        ds.decoder_step_chunk(ds.pack_decoder_params(model, dt), carry,
+                              *ds.attention_inputs(mem, proc, None), **kw)
+    with pytest.raises(ValueError, match=words):
+        tm.infer_fused(model, torch.ones(1, T, dtype=torch.long),
+                       torch.tensor([T]), cfg, max_steps=2)
+    with pytest.raises(ValueError, match=words):
+        BatchingSynthesizer(model, cfg, max_batch=4, device=cuda)
+    if dt == torch.float32:
+        with pytest.raises(ValueError, match=words):
+            StreamingSynthesizer(model, cfg, device=cuda)
+    assert (db.decoder_chunk_plain.calls,
+            ds.decoder_step_chunk_plain.calls) == plain
 
 
 # ------------------------------------------------------ slice 6: rows 3, 6
@@ -863,7 +933,6 @@ def full_step_case(device, T, cs, keep, r=1, gate_logit=1e30):
 def assert_one_persistent_chunk(run):
     names = kernel_names(run)
     assert sum("persistent_chunk_kernel" in n for n in names) == 1, names
-    assert not any("lstm_row_kernel" in n for n in names), set(names)
 
 
 @pytest.mark.gpu
@@ -930,56 +999,6 @@ def test_decoder_step_persistent_latches_mid_chunk(cuda):
     torch.cuda.synchronize()
     assert bool(want.carry.fin.all())
     assert int(want.carry.lens[0]) < kw["t0"] + cs
-    assert_chunks_close(got, want, STEP_REL[torch.bfloat16])
-
-
-@pytest.mark.gpu
-def test_decoder_step_fp32_takes_the_per_step_kernels(cuda):
-    """Row 6 at fp32 keeps the per-step launches (no fragment-order
-    weights in its pack), and matches the plain version as before."""
-    args, kw = full_step_case(cuda, 64, 8, False)
-    fp = args[0]
-    from tacotron2_tpu_torch.config import create_config
-    model = tm.Tacotron2(create_config(),
-                         torch.Generator().manual_seed(7)).to(cuda)
-    fp32 = ds.pack_decoder_params(model, torch.float32)
-    assert fp32.w1f is None and fp.w1f is not None
-    args = (fp32, *args[1:])
-    run = lambda: ds.decoder_step_chunk(*args, **kw)
-    names = kernel_names(run)
-    assert not any("persistent_chunk_kernel" in n for n in names), names
-    assert sum("lstm_row_kernel" in n for n in names) == 2 * 8, names
-    got = run()
-    want = ds.decoder_step_chunk_plain(*args, **kw)
-    torch.cuda.synchronize()
-    assert_chunks_close(got, want, STEP_REL[torch.float32])
-
-
-@pytest.mark.gpu
-def test_decoder_step_off_range_bf16_takes_the_per_step_kernels(cuda):
-    """A bf16 chunk outside the persistent plan (attention width 256, above
-    its 128) keeps the per-step launches, and matches the plain version as
-    before (narrow widths, T=37, 16 steps)."""
-    cfg = CFG.replace(gate_threshold=0.3, attention_dim=256)
-    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0)).to(cuda)
-    fp = ds.pack_decoder_params(model, torch.bfloat16)
-    g = torch.Generator(device=cuda).manual_seed(2)
-    T = 37
-    mem = torch.randn(1, T, 128, generator=g, device=cuda) * 0.5
-    proc = (torch.randn(1, T, 256, generator=g, device=cuda) * 0.5
-            ).bfloat16().float()
-    mask = torch.arange(T, device=cuda)[None] < T - 5
-    mem, proc, emask = ds.attention_inputs(mem, proc, mask)
-    n = fp.pre1.shape[0]
-    args = (fp, zero_carry(1, T, n, cuda), mem, proc, emask)
-    kw = dict(t0=3, chunk_steps=16, gate_logit=-0.5)
-    run = lambda: ds.decoder_step_chunk(*args, **kw)
-    names = kernel_names(run)
-    assert not any("persistent_chunk_kernel" in n for n in names), names
-    assert sum("lstm_row_kernel" in n for n in names) == 2 * 16, names
-    got = run()
-    want = ds.decoder_step_chunk_plain(*args, **kw)
-    torch.cuda.synchronize()
     assert_chunks_close(got, want, STEP_REL[torch.bfloat16])
 
 
@@ -1370,15 +1389,16 @@ def test_train_step_at_lstm_widths_not_in_eights(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_serving_chunks_at_lstm_widths_not_in_eights(cuda, dtype):
+def test_serving_chunks_at_lstm_widths_not_in_eights(cuda):
     """Rows 5 (B=8) and 6 (B=1) at A=20, D=24 through the chunk loop's
     ``_decode_chunk`` (the pack padded to 24 and 24 units, the carry padded
-    and sliced back): each output and carry field within DEC_REL /
-    STEP_REL of the same chunk through the plain versions on the same
-    padded pack."""
+    and sliced back; the attention LSTM's input depth, 128 + 128 + 24 =
+    280, padded with zero rows to 288 in the fragment-order copy): one
+    launch each, every output and carry field within DEC_REL / STEP_REL of
+    the same chunk through the plain versions on the same padded pack."""
     cfg = ODD.replace(gate_threshold=0.3)
     model = tm.Tacotron2(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    bf16 = torch.bfloat16
     fused_inputs = lambda fp, *a: ds.attention_inputs(*a)
     batch_inputs = lambda fp, *a: db.attention_inputs(*a, fp.w1.dtype)
     for B, pack, inputs, chunk, plain, table in (
@@ -1386,8 +1406,9 @@ def test_serving_chunks_at_lstm_widths_not_in_eights(cuda, dtype):
              db.decoder_chunk, db.decoder_chunk_plain, DEC_REL),
             (1, ds.pack_decoder_params, fused_inputs,
              ds.decoder_step_chunk, ds.decoder_step_chunk_plain, STEP_REL)):
-        fp = pack(model, dtype)
+        fp = pack(model, bf16)
         assert fp.w1.shape[0] * 8 == 24 and fp.w2.shape[0] * 8 == 24
+        assert fp.w1f.shape[1] * 16 == 288
         g = torch.Generator(device=cuda).manual_seed(B)
         T = 37
         memory = torch.randn(B, T, 128, generator=g, device=cuda) * 0.5
@@ -1410,7 +1431,7 @@ def test_serving_chunks_at_lstm_widths_not_in_eights(cuda, dtype):
                           s.att_context, carry.prev_mel)
         errs = rel_errs(outs["kernel"], outs["plain"],
                         ("mel", "gate", "align") + CARRY)
-        limits = table[dtype]
+        limits = table[bf16]
         assert all(errs[k] <= limits[k] for k in errs), (B, errs)
 
 
