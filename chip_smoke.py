@@ -14,16 +14,20 @@ on failure:
 3. encoder BiLSTM kernel against its plain version at full width (N=512,
    H=256, bf16; B=8 and B=1 at T 128, 48 and 32), timed beside cuDNN's
    bidirectional LSTM, one launch a call (torch.profiler);
-4. decoder chunk kernel against its plain version at full width (T_in=128,
-   one 64-step bf16 chunk: B=8, again with prenet keep masks; B=1; B=13
-   with keep masks), every output and carry field within its own limit
-   (DEC_REL), and the same comparison must reject the kernel's output with
-   its attention perturbed; a chunk must be one launch of the persistent
-   kernel (torch.profiler);
+4. decoder chunk kernel against its plain version at full width (one
+   64-step bf16 chunk at T_in=128: B=8, again with prenet keep masks; B=1;
+   B=13 with keep masks; and at the row tiles serving decodes, B=16, 24
+   and 32 at T_in 64, 128 and 192, some with keep masks), every output and
+   carry field within its own limit (DEC_REL), and the same comparison
+   must reject the kernel's output with its attention perturbed; a chunk
+   must be one launch of the persistent kernel (torch.profiler);
 5. serving: ``BatchingSynthesizer(max_batch=8)`` at the default config with
    seeded random weights answers 16 requests in the 64 and 128 text
    buckets (bf16, max_steps=200); both kernels' launch counts must rise
-   and the plain versions must not run. Then fp32: the encoder kernel
+   and the plain versions must not run. A second one at ``max_batch=32``
+   must have decoded every (row tile, text bucket) shape before its first
+   request, and decode batches of 5, 13, 20 and 27 requests at 8, 16, 24
+   and 32 rows, with no plain version run. Then fp32: the encoder kernel
    over eight of those texts against its plain version on the CPU, and
    ``BatchingSynthesizer``, ``StreamingSynthesizer`` and ``infer_fused``
    refusing an fp32 config on the card (the decoder kernels take bf16
@@ -434,17 +438,26 @@ CHUNK_KERNELS = ("persistent_chunk_kernel",)
 
 
 def decoder_phase(model, cfg, dev, card):
-    """Row 5 at full width against its plain version, bf16: B=8 (and with
-    keep masks), B=1 and B=13 with keep masks, one 64-step chunk each; the
-    kernel line's time at B=8, beside the per-step byte floor; the chunk's
-    CUDA kernels counted by torch.profiler."""
-    T, cs = 128, 64
+    """Row 5 at full width against its plain version, bf16, one 64-step
+    chunk each: at T_in 128, B=8 (and with keep masks), B=1 and B=13 with
+    keep masks; at the row tiles a served batch takes beyond 8 (B 16, 24,
+    32: one n8 tile more each) by every text bucket (T_in 64, 128, 192);
+    the kernel line's time at B=8, beside the per-step byte floor; the
+    chunk's CUDA kernels counted by torch.profiler."""
+    cs = 64
     dtype = torch.bfloat16
     limits = DEC_REL[dtype]
     fp = db.pack_batch_decoder_params(model, dtype)
-    results = {}
-    for B, keep in ((8, False), (8, True), (1, False), (13, True)):
-        label = f"bf16{'+keep' if keep else ''} B={B}"
+    results, row_tiles = {}, []
+    # (B, T_in, keep masks): keep masks once at each B and at each T_in
+    tiles = [(16, 64, False), (16, 128, True), (16, 192, False),
+             (24, 64, False), (24, 128, False), (24, 192, True),
+             (32, 64, True), (32, 128, False), (32, 192, False)]
+    for B, T, keep in ([(8, 128, False), (8, 128, True), (1, 128, False),
+                        (13, 128, True)] + tiles):
+        label = f"bf16{'+keep' if keep else ''} B={B} T_in={T}"
+        if (B, T, keep) in tiles:
+            row_tiles.append(label)
         mem, proc, emask, carry, g = _chunk_inputs(model, cfg, dev,
                                                    dtype, B, T)
         kp = (None, None)
@@ -474,7 +487,7 @@ def decoder_phase(model, cfg, dev, card):
                                getattr(want.carry, name)):
                 fail(f"decoder kernel ({label}): {name} differs from the "
                      f"plain version")
-        if label == "bf16 B=8":
+        if label == "bf16 B=8 T_in=128":
             _check_catches(got, want, limits)
             names = profiled_kernels(lambda: db.decoder_chunk(*args, **kw))
             chunk = [k for k in names if k in CHUNK_KERNELS]
@@ -500,7 +513,7 @@ def decoder_phase(model, cfg, dev, card):
                   + mem.numel() * mem.element_size()
                   + proc.numel() * proc.element_size())
         floor_ms = cs * step_b / HBM_BYTES_PER_S * 1e3
-        print(f"decoder [{card}] {label} T_in={T} chunk={cs}: max |err|"
+        print(f"decoder [{card}] {label} chunk={cs}: max |err|"
               f" {err:.3e}; finished "
               f"{int(got.carry.fin.sum())}/{B}; kernel {ms:.4f} ms "
               f"({ms / cs * 1e3:.2f} us a step), plain {plain_ms:.4f} ms, "
@@ -509,7 +522,7 @@ def decoder_phase(model, cfg, dev, card):
         results[label] = dict(max_abs_err=err, ms=ms,
                               plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, floor_ms=floor_ms)
-    r = results["bf16 B=8"]
+    r = results["bf16 B=8 T_in=128"]
     return {"name": "decoder_chunk", "route": "cuda",
             "source": "tacotron2_tpu_torch/kernels/csrc/decoder_batch.cu",
             "replaces": "tacotron2_tpu/kernels/decoder_batch.py:107",
@@ -519,10 +532,13 @@ def decoder_phase(model, cfg, dev, card):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "floor_ms": r["floor_ms"], "library_ms": None,
             "launches_per_chunk": per_chunk,
-            "B1": {k: results["bf16 B=1"][k] for k in
+            "B1": {k: results["bf16 B=1 T_in=128"][k] for k in
                    ("max_abs_err", "ms", "bound_ms", "floor_ms")},
-            "B13_keep": {k: results["bf16+keep B=13"][k] for k in
-                         ("max_abs_err", "ms", "bound_ms", "floor_ms")}}
+            "B13_keep": {k: results["bf16+keep B=13 T_in=128"][k] for k in
+                         ("max_abs_err", "ms", "bound_ms", "floor_ms")},
+            "row_tiles": {label: {k: results[label][k] for k in
+                                  ("max_abs_err", "ms")}
+                          for label in row_tiles}}
 
 
 def _chunk_fields(got, want):
@@ -577,8 +593,13 @@ def _decoder_work(fp, B, T, cs, keep, n_filters, att_size=None):
     return nbytes, 2.0 * cs * B * macs
 
 
+# 192-symbol bucket
+MIDDLE_TEXTS = [f"{a} {b}" for a, b in zip(LONG_TEXTS[1:], SHORT_TEXTS[1:])]
+
+
 def serving_phase(cfg, dev, card, seed):
-    for texts, bucket in ((SHORT_TEXTS, 64), (LONG_TEXTS, 128)):
+    for texts, bucket in ((SHORT_TEXTS, 64), (LONG_TEXTS, 128),
+                          (MIDDLE_TEXTS, 192)):
         for t in texts:
             got = text_bucket(len(text_to_sequence(t, cfg.text_cleaners)),
                               cfg.text_buckets)
@@ -627,7 +648,68 @@ def serving_phase(cfg, dev, card, seed):
           f"{len(results)} requests in 2 batches (buckets 64, 128); batch "
           f"latency {lat[0] * 1e3:.1f} ms, {lat[1] * 1e3:.1f} ms; "
           f"{frames / sum(lat):.1f} mel frames/s; launches {counts}")
+    served_tiles_check(model, cfg, dev, card, max_steps)
     return counts, model
+
+
+def served_tiles_check(model, cfg, dev, card, max_steps):
+    """``BatchingSynthesizer(max_batch=32)``: the constructor returns with
+    every (row tile, text bucket) shape decoded once; batches of 5, 13, 20
+    and 27 requests (buckets 64, 128, 192, 128) launch at 8, 16, 24 and 32
+    rows (``_rows``); every request's output is well formed; no plain
+    version runs."""
+    r = cfg.n_frames_per_step
+    t0 = time.perf_counter()
+    synth = BatchingSynthesizer(model, cfg, max_batch=32, max_steps=max_steps,
+                                max_wait_ms=200.0, device=dev)
+    built_s = time.perf_counter() - t0
+    shapes = []
+    infer = synth._infer
+
+    def recorded(text, lengths):
+        shapes.append(tuple(text.shape))
+        return infer(text, lengths)
+
+    synth._infer = recorded
+    el.bilstm_forward_plain.calls = 0
+    db.decoder_chunk_plain.calls = 0
+    batches = ((5, SHORT_TEXTS), (13, LONG_TEXTS), (20, MIDDLE_TEXTS),
+               (27, LONG_TEXTS))
+    try:
+        want_warm = [(rows, t) for rows in (8, 16, 24, 32)
+                     for t in cfg.text_buckets]
+        if synth.tiles != [8, 16, 24, 32] or synth.warmed != want_warm:
+            fail(f"max_batch=32: tiles {synth.tiles}, warmed "
+                 f"{synth.warmed}, not {want_warm}")
+        for n, pool in batches:
+            texts = [pool[i % len(pool)] for i in range(n)]
+            for text, (mel, align, frames) in zip(texts,
+                                                  synth.synthesize(texts)):
+                n_ids = len(text_to_sequence(text, cfg.text_cleaners))
+                if not (0 < frames <= max_steps * r
+                        and mel.shape == (frames, cfg.n_mel_channels)
+                        and align.shape == (frames, n_ids)
+                        and np.isfinite(mel).all()
+                        and np.isfinite(align).all()):
+                    fail(f"max_batch=32, a batch of {n}: {text!r} gave "
+                         f"{frames} frames, mel {mel.shape}, align "
+                         f"{align.shape}, or a value not finite")
+        plain_calls = (el.bilstm_forward_plain.calls
+                       + db.decoder_chunk_plain.calls)
+    finally:
+        synth.close()
+    want = [(synth._rows(n), text_bucket(max(
+        len(text_to_sequence(t, cfg.text_cleaners)) for t in pool[:n]),
+        cfg.text_buckets)) for n, pool in batches]
+    if shapes != want or [b for b, _ in want] != [8, 16, 24, 32]:
+        fail(f"max_batch=32: batches of {[n for n, _ in batches]} launched "
+             f"at {shapes}, not {want}")
+    if plain_calls:
+        fail(f"max_batch=32: a plain version ran {plain_calls} times on "
+             f"the card")
+    print(f"serving [{card}] bf16 max_batch=32 max_steps={max_steps}: built "
+          f"in {built_s:.3f} s with {len(synth.warmed)} shapes warmed; "
+          f"batches of {[n for n, _ in batches]} launched at {shapes}")
 
 
 def breakdown_phase(model, cfg, dev, card):

@@ -48,6 +48,9 @@ from tacotron2_tpu_torch.utils.profiling import span
 NEG = -1e30       # additive attention mask (the TPU kernels' -inf stand-in)
 GATE_MASK = 1e3   # gate value of finished rows (reference model.py:495)
 _DEC_UNITS = 8    # hidden units per block of the block-major w1 and w2
+# rows of the kernel's n8 tile: a launch of B rows computes ceil(B / 8)
+# whole tiles (csrc/persistent_chunk.cuh, templated on that count)
+ROW_TILE = 8
 # PC_NPH of csrc/persistent_chunk.cuh: the persistent chunk's phases of
 # items (prenet, query, energies, softmax and context, projection)
 N_ITEM_PHASES = 5

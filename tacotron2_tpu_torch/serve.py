@@ -1,17 +1,21 @@
 """Batched TTS serving on the port.
 
-``BatchingSynthesizer`` coalesces concurrent requests into fixed-shape
-batches (``max_batch`` rows, one text bucket per batch, padding rows of zero
-text and length 1), runs each batch through
+``BatchingSynthesizer`` coalesces concurrent requests into batches of up to
+``max_batch`` requests, one text bucket per batch, runs each batch through
 ``models.tacotron2.infer_batch_fused`` -- the hand-written encoder and
 decoder-chunk kernels on a CUDA device -- and resolves one future per
-request. A model in its int8 serving form (``quantize_for_serving``) goes
-through ``models.tacotron2.infer`` instead, the step-by-step decoder whose
-LSTM cells call the int8 kernel: the chunk kernels' packer takes only
-unquantized weights. ``VocoderRunner`` turns one mel into audio through the
-HiFi-GAN generator or WaveGlow at bucketed lengths. Same API and semantics
-as the JAX package's ``serve.py``, with the model given as a module (or its
-state_dict) and an explicit ``device``.
+request. A batch of n requests is decoded at n rows rounded up to the
+decoder kernel's 8-row tile (``decoder_batch.ROW_TILE``), at most
+``max_batch``; the rows past n are padding, zero text of length 1. That
+leaves a few shapes a text bucket, and on a card the worker decodes each
+once before its first request. A model in its int8 serving form
+(``quantize_for_serving``) goes through ``models.tacotron2.infer`` instead,
+the step-by-step decoder whose LSTM cells call the int8 kernel (the chunk
+kernels' packer takes only unquantized weights), at ``max_batch`` rows
+always: its captured graphs are keyed by shape. ``VocoderRunner`` turns one
+mel into audio through the HiFi-GAN generator or WaveGlow at bucketed
+lengths. Same API and semantics as the JAX package's ``serve.py``, with the
+model given as a module (or its state_dict) and an explicit ``device``.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import List, Mapping, Optional, Sequence, Union
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,6 +52,12 @@ def _as_model(model, config: Tacotron2Config) -> tacotron2.Tacotron2:
 class BatchingSynthesizer:
     """Submit texts from any thread; batches run on one worker thread.
 
+    On a card the worker first decodes each shape a batch can take, every
+    (rows, text bucket) pair of ``tiles`` and the config's buckets, and the
+    constructor waits for it: cuDNN keeps the convolutions' plans per thread
+    and per shape, so a shape met first by a request would build them in
+    its time. ``warmed`` lists the shapes so decoded, in order.
+
     Usage:
         synth = BatchingSynthesizer(model, cfg, max_batch=8)
         future = synth.submit("Hello world.")
@@ -73,14 +83,17 @@ class BatchingSynthesizer:
             db.require_bf16(dtype, device)
         self.device = tacotron2.resolve_device(device)
         self.model = model.to(self.device).eval()
-        if kernel:
-            for t in self.config.text_buckets:
-                reason = db.kernel_limits(self.config, t, max_batch,
-                                          self.device)
-                if reason is not None:
-                    raise ValueError(f"decoder kernel cannot serve text "
-                                     f"bucket {t}: {reason}")
         self.max_batch = max_batch
+        self.tiles = sorted({self._rows(n) for n in range(1, max_batch + 1)})
+        if kernel:
+            for rows in self.tiles:
+                for t in self.config.text_buckets:
+                    reason = db.kernel_limits(self.config, t, rows,
+                                              self.device)
+                    if reason is not None:
+                        raise ValueError(
+                            f"decoder kernel cannot serve text bucket {t} "
+                            f"at {rows} rows: {reason}")
         self.max_wait_ms = max_wait_ms
         self.max_steps = max_steps or config.max_decoder_steps
         # packed once: the layout is independent of the text bucket
@@ -89,8 +102,14 @@ class BatchingSynthesizer:
         self._packed_lstm = tacotron2.pack_encoder_lstm(self.model, dtype)
         self._queue: "queue.Queue" = queue.Queue()
         self._closed = False
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self.warmed: List[Tuple[int, int]] = []
+        # the requests of the batch in hand, its first rows (``_infer``)
+        self._batch_requests: Optional[int] = None
+        ready: Future = Future()
+        self._worker = threading.Thread(target=self._run,
+                                        args=(ready, kernel), daemon=True)
         self._worker.start()
+        ready.result()   # the warm-up done, or its error raised here
 
     # ------------------------------------------------------------- API
 
@@ -138,7 +157,39 @@ class BatchingSynthesizer:
                 items.append(item)
         return items
 
+    def _rows(self, n: int) -> int:
+        """The rows a batch of ``n`` requests is decoded at: ``n`` rounded
+        up to the decoder kernel's row tile, which a launch computes whole
+        anyway, at most ``max_batch``. The quantized path keeps
+        ``max_batch``: each shape there is a capture of its own."""
+        if self.quantized:
+            return self.max_batch
+        return min(-(-n // db.ROW_TILE) * db.ROW_TILE, self.max_batch)
+
+    def _warm_up(self) -> None:
+        """Decode each (rows, text bucket) shape once, on this thread: every
+        row of zero text and length 1, and a gate threshold of 0, at which
+        every row latches at its first step. So the decoder runs two chunks
+        (the second launched ahead of the first's latch read), while the
+        encoder and the postnet run at the served shapes, the postnet over
+        the ``max_steps`` frames the decode returns."""
+        latched = self.config.replace(gate_threshold=0.0)
+        for rows in self.tiles:
+            for t in self.config.text_buckets:
+                tacotron2.infer_batch_fused(
+                    self.model, torch.zeros((rows, t), dtype=torch.int32),
+                    torch.ones((rows,), dtype=torch.int32), latched,
+                    packed=self._packed, packed_lstm=self._packed_lstm,
+                    max_steps=self.max_steps, device=self.device)
+                self.warmed.append((rows, t))
+        torch.cuda.synchronize(self.device)
+
     def _infer(self, text: np.ndarray, lengths: np.ndarray):
+        """The batch decoded, and the rows of its requests copied to the
+        host: the first ``_batch_requests``, which ``_run`` sets for each
+        batch, or every row while it is None. A count held beside the call,
+        not passed in it, so that a wrapper of ``_infer(text, lengths)``
+        (the serving benchmark's) passes the call on unchanged."""
         text, lengths = torch.from_numpy(text), torch.from_numpy(lengths)
         if self.quantized:
             cd = self.config.torch_compute_dtype
@@ -151,12 +202,20 @@ class BatchingSynthesizer:
                 self.model, text, lengths, self.config, packed=self._packed,
                 packed_lstm=self._packed_lstm, max_steps=self.max_steps,
                 device=self.device)
+        n = self._batch_requests
         with span("serve.to_host"):
-            return (res.mel_postnet.cpu().numpy(),
-                    res.alignments.cpu().numpy(),
-                    res.mel_lengths.cpu().numpy())
+            return (res.mel_postnet[:n].cpu().numpy(),
+                    res.alignments[:n].cpu().numpy(),
+                    res.mel_lengths[:n].cpu().numpy())
 
-    def _run(self) -> None:
+    def _run(self, ready: Future, warm: bool) -> None:
+        try:
+            if warm:
+                self._warm_up()
+        except Exception as e:  # raised to the constructor
+            ready.set_exception(e)
+            return
+        ready.set_result(None)
         buckets = self.config.text_buckets
         while True:
             items = self._collect()
@@ -169,8 +228,9 @@ class BatchingSynthesizer:
             try:
                 max_len = max(len(ids) for ids, _, _ in items)
                 t_text = text_bucket(max_len, buckets)
-                B = self.max_batch  # fixed batch shape: padding rows
-                with span("serve.batch", len(items), wait_us):
+                B = self._rows(len(items))
+                self._batch_requests = len(items)
+                with span("serve.batch", len(items), wait_us, B):
                     text = np.zeros((B, t_text), np.int32)
                     lengths = np.ones((B,), np.int32)
                     for i, (ids, _, _) in enumerate(items):

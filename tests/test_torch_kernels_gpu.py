@@ -20,7 +20,8 @@ output's largest value (exact products, fp32 sums in another order). Mel
 kernel: 1e-4 in the log domain (its DFT as three TF32 products, ~2^-22 of
 each product, and fp32 sums of 1024 and 513 terms in another order; the log
 turns a relative error into an absolute one). TF32 is off for the plain
-versions' products.
+versions' products. Rows across the row tiles serving decodes at: the
+same bits, but for cuDNN's convolutions (TILE_RMS, from the readings).
 """
 
 import importlib
@@ -1636,3 +1637,151 @@ def test_look_ahead_decode_equals_sequential(cuda, B, stop, dropout,
                    or name == "cudaMemcpy")]
     assert not drains, drains
     assert not [c for c in copies if "Pageable" in c], copies
+
+
+# ------------------------------------------------ serving at the row tile
+
+TILES = (8, 16, 24, 32)   # the rows a served batch is decoded at
+# Rows decoded at another tile with cuDNN's convolutions in, as served: the
+# encoder's output and the postnet's residual for the same rows, as a
+# root-mean-square gap over the real rows, as a share of the tile-32 one.
+# cuDNN picks a convolution's algorithm by its shape, and another algorithm
+# sums in another order and rounds some bf16 outputs the other way (with
+# cuDNN off the rows are the same bits at every tile). About three times
+# the worst reading on the card, five texts at seeds 5 and 6: the encoder
+# 6.9e-4 (tile 24 only; its three convolutions 1.1e-5, carried through the
+# BiLSTM), the postnet 1.2e-3 (at some tiles and frame counts, none at
+# others).
+TILE_RMS = dict(memory=2e-3, postnet=4e-3)
+SERVED_TEXTS = ["Hello world.", "It is 9 a.m. and the sun is up.",
+                "Printing, in the only sense with which we are concerned.",
+                "Dogs bark.", "A longer sentence, with a comma or two, "
+                "goes here to fill its bucket."]
+
+
+def rms_gap(x, y):
+    x, y = x.float(), y.float()
+    return float((x - y).square().sum().sqrt() / y.square().sum().sqrt())
+
+
+@pytest.mark.gpu
+def test_served_rows_decode_alike_at_every_tile(cuda):
+    """The same five texts (bucket 128) through ``infer_batch_fused`` at
+    full width, 400 steps, padded to each row tile a batch of them can be
+    decoded at (8, 16, 24, 32). With cuDNN off, each text's ``mel``,
+    ``mel_postnet``, gates, alignments and ``mel_lengths`` are the same bits
+    at every tile: nothing the port computes mixes rows or sums a row
+    otherwise at another row count. With cuDNN on, as served, the lengths
+    are the same, and the encoder's output and the postnet's residual for
+    the same rows within ``TILE_RMS`` of those at 32 rows."""
+    from tacotron2_tpu_torch.config import create_config
+    from tacotron2_tpu_torch.text import text_to_sequence
+    cfg = create_config().replace(prenet_dropout_at_inference=False)
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(5)).to(cuda)
+    packed = db.pack_batch_decoder_params(model, torch.bfloat16)
+    packed_lstm = tm.pack_encoder_lstm(model, torch.bfloat16)
+    ids = [text_to_sequence(t, cfg.text_cleaners) for t in SERVED_TEXTS]
+    n = len(ids)
+    text = torch.zeros(32, 128, dtype=torch.int32)
+    lengths = torch.ones(32, dtype=torch.int32)
+    for b, i in enumerate(ids):
+        text[b, :len(i)] = torch.tensor(i)
+        lengths[b] = len(i)
+
+    def decode(rows):
+        return tm.infer_batch_fused(
+            model, text[:rows], lengths[:rows], cfg, packed=packed,
+            packed_lstm=packed_lstm, max_steps=400, device=cuda)
+
+    with torch.backends.cudnn.flags(enabled=False):
+        plain_conv = {rows: decode(rows) for rows in TILES}
+    served = {rows: decode(rows) for rows in TILES}
+    t, lens = text.to(cuda), lengths.to(cuda)
+    with torch.no_grad():
+        memory = {rows: tm.encode(model, t[:rows], lens[:rows], cfg,
+                                  compute_dtype=torch.bfloat16,
+                                  packed_lstm=packed_lstm) for rows in TILES}
+        mel = served[32].mel
+        postnet = {rows: tm.postnet_apply(model, mel[:rows], cfg,
+                                          compute_dtype=torch.bfloat16)
+                   for rows in TILES}
+    for rows in TILES[:-1]:
+        for name, x, y in zip(tm.InferenceResult._fields, plain_conv[rows],
+                              plain_conv[32]):
+            assert torch.equal(x[:n], y[:n]), (rows, name)
+        assert torch.equal(served[rows].mel_lengths[:n],
+                           served[32].mel_lengths[:n]), rows
+        for name, got in (("memory", memory), ("postnet", postnet)):
+            gap = rms_gap(got[rows][:n], got[32][:n])
+            assert gap <= TILE_RMS[name], (rows, name, gap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["encoder", "decoder"])
+def test_kernel_rows_do_not_depend_on_the_tile(cuda, kernel):
+    """Rows 3 and 5 at full width (bf16, T_in 128; row 5 a 64-step chunk
+    with keep masks): five rows of fixed inputs, padded with rows of noise
+    to 8, 16, 24 and 32 rows, give the same bits in those five rows at
+    every tile. So neither kernel's plan by B (row 3's 16- or 32-row
+    cluster groups, row 5's n8 tiles and row groups) changes how a row is
+    summed, and no padding row reaches a real one."""
+    n = len(SERVED_TEXTS)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    noise = lambda x: torch.randn(x.shape, generator=g,
+                                  device=cuda).to(x.dtype)
+    outs = {}
+    if kernel == "encoder":
+        wf, bf, wb, bb, xs, xsr = encoder_case(cuda, torch.bfloat16, 32, 128)
+        for rows in TILES:
+            x, xr = xs[:rows].clone(), xsr[:rows].clone()
+            x[n:], xr[n:] = noise(x[n:]), noise(xr[n:])
+            outs[rows] = [y[:, :n] for y in el.bilstm_forward(
+                wf, bf, wb, bb, x, xr)]     # (T, B, ...)
+    else:
+        (fp, carry, mem, proc, emask), kw = served_case(cuda, 32, 128, 64,
+                                                        True)
+        for rows in TILES:
+            m, p = mem[:rows].clone(), proc[:rows].clone()
+            m[n:], p[n:] = noise(m[n:]), noise(p[n:])
+            got = db.decoder_chunk(
+                fp, db.ChunkCarry(*(x[:rows] for x in carry)), m, p,
+                emask[:rows], **{**kw, "kp1": kw["kp1"][:, :rows].contiguous(),
+                                 "kp2": kw["kp2"][:, :rows].contiguous()})
+            outs[rows] = ([y[:, :n] for y in (got.mel, got.gate, got.align)]
+                          + [y[:n] for y in got.carry])
+    for rows in TILES[:-1]:
+        for i, (x, y) in enumerate(zip(outs[rows], outs[32])):
+            assert torch.equal(x, y), (rows, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_batch,tiles", [(32, [8, 16, 24, 32]),
+                                             (6, [6])])
+def test_synthesizer_warms_every_shape_before_its_first_request(
+        cuda, max_batch, tiles):
+    """On the card the constructor returns once the worker has decoded
+    every (rows, text bucket) shape a batch can take, the row tiles up to
+    ``max_batch`` by the buckets, in order; requests then decode at those
+    shapes (a batch of two at the first tile)."""
+    from tacotron2_tpu_torch.serve import BatchingSynthesizer
+    cfg = CFG.replace(n_symbols=148, compute_dtype="bfloat16",
+                      text_buckets=(32, 64))
+    model = tm.Tacotron2(cfg, torch.Generator().manual_seed(2))
+    synth = BatchingSynthesizer(model, cfg, max_batch=max_batch,
+                                max_wait_ms=200, max_steps=20, device=cuda)
+    try:
+        assert synth.tiles == tiles
+        assert synth.warmed == [(r, t) for r in tiles for t in (32, 64)]
+        shapes = []
+        infer = synth._infer
+
+        def recorded(text, lengths):
+            shapes.append(text.shape)
+            return infer(text, lengths)
+
+        synth._infer = recorded
+        (mel, _, frames), _ = synth.synthesize(SERVED_TEXTS[:2])
+    finally:
+        synth.close()
+    assert shapes == [(tiles[0], 64)]
+    assert 0 < frames <= 20 and mel.shape == (frames, cfg.n_mel_channels)

@@ -17,6 +17,7 @@ from tacotron2_tpu.text import text_to_sequence
 
 from tacotron2_tpu_torch.config import Tacotron2Config
 from tacotron2_tpu_torch.convert import state_dict_from_jax
+from tacotron2_tpu_torch.data.bucketing import text_bucket
 from tacotron2_tpu_torch.models import tacotron2 as tm
 from tacotron2_tpu_torch.serve import BatchingSynthesizer
 
@@ -28,6 +29,7 @@ DIMS = dict(
     postnet_embedding_dim=32, postnet_n_convolutions=3, gate_threshold=0.5,
     max_decoder_steps=10, text_buckets=(24, 48), compute_dtype="float32")
 ATOL = 1e-4
+ROWS_ATOL = 1e-6  # fp32 against fp32, sums in another order (~100 ulp)
 TEXTS = [  # 3 in the 24-symbol bucket, 2 in the 48-symbol one
     "Hello world.",
     "Short and sweet.",
@@ -94,6 +96,87 @@ def test_synthesizer_matches_jax(models):
                                    err_msg=text)
         np.testing.assert_allclose(ga, np.asarray(wa), atol=ATOL,
                                    err_msg=text)
+
+
+def padded(ids, rows, bucket):
+    """The synthesizer's batch arrays: ``ids`` in the first rows, the rest
+    padding rows of zero text and length 1."""
+    text = np.zeros((rows, bucket), np.int32)
+    lengths = np.ones((rows,), np.int32)
+    for b, i in enumerate(ids):
+        text[b, :len(i)] = i
+        lengths[b] = len(i)
+    return torch.from_numpy(text), torch.from_numpy(lengths)
+
+
+@pytest.mark.parametrize("n,max_batch,quantized", [
+    (1, 32, False), (8, 32, False), (9, 32, False), (17, 32, False),
+    (32, 32, False), (5, 6, False), (3, 32, True)],
+    ids=["1of32", "8of32", "9of32", "17of32", "32of32", "5of6",
+         "int8-3of32"])
+def test_synthesizer_decodes_at_the_row_tile(models, n, max_batch,
+                                             quantized):
+    """A batch of n requests is decoded at n rows rounded up to the
+    decoder kernel's 8-row tile, at most ``max_batch`` (the int8 path at
+    ``max_batch``): one call of ``_infer`` at that shape, and every
+    request's (mel_postnet, alignment, n) the same as its row of the same
+    texts decoded at ``max_batch`` rows, within ``ROWS_ATOL``: the CPU's
+    matrix products sum in another order at another row count."""
+    _, _, _, model, tcfg = models
+    if quantized:
+        model = tm.quantize_for_serving(model)
+    synth = BatchingSynthesizer(model, tcfg, max_batch=max_batch,
+                                max_wait_ms=1000, device="cpu")
+    shapes = []
+    infer = synth._infer
+
+    def recorded(text, lengths):
+        shapes.append(text.shape)
+        return infer(text, lengths)
+
+    assert synth.warmed == []   # nothing is warmed on the CPU
+    synth._infer = recorded
+    texts = [f"{TEXTS[i % len(TEXTS)]} Take {i}." for i in range(n)]
+    try:
+        got = synth.synthesize(texts)
+    finally:
+        synth.close()
+    ids = [text_to_sequence(t, tcfg.text_cleaners) for t in texts]
+    bucket = text_bucket(max(len(i) for i in ids), tcfg.text_buckets)
+    rows = max_batch if quantized else min(-(-n // 8) * 8, max_batch)
+    assert shapes == [(rows, bucket)]
+    text, lengths = padded(ids, max_batch, bucket)
+    if quantized:
+        want = tm.infer(synth.model, text, lengths, synth.config,
+                        max_steps=synth.max_steps, device="cpu")
+    else:
+        want = tm.infer_batch_fused(synth.model, text, lengths,
+                                    synth.config, max_steps=synth.max_steps,
+                                    device="cpu")
+    for b, (mel, align, frames) in enumerate(got):
+        assert frames == int(want.mel_lengths[b])
+        np.testing.assert_allclose(
+            mel, want.mel_postnet[b, :frames].numpy(), rtol=0,
+            atol=ROWS_ATOL)
+        np.testing.assert_allclose(
+            align, want.alignments[b, :frames, :len(ids[b])].numpy(),
+            rtol=0, atol=ROWS_ATOL)
+
+
+def test_infer_outside_a_batch_copies_every_row(models):
+    """``_infer`` called outside ``_run`` (no batch in hand) returns every
+    row it decoded, padding rows too; in ``_run`` it returns the batch's
+    request rows alone (``test_synthesizer_decodes_at_the_row_tile``)."""
+    _, _, _, model, tcfg = models
+    synth = BatchingSynthesizer(model, tcfg, max_batch=8, device="cpu")
+    try:
+        text, lengths = batch(TEXTS[:3], tcfg, 24)
+        mel, align, mel_lengths = synth._infer(
+            np.concatenate([text, np.zeros((5, 24), np.int32)]),
+            np.concatenate([lengths, np.ones(5, np.int32)]))
+    finally:
+        synth.close()
+    assert mel.shape[0] == align.shape[0] == mel_lengths.shape[0] == 8
 
 
 def test_plain_infer_matches_jax(models):
